@@ -1,0 +1,40 @@
+"""bayesssm_tpu_torch — the PyTorch + CUDA port of ``bayesssm_tpu``.
+
+Runs the stochastic-SIR PMMH main path on an NVIDIA H100: a batched
+whole-sweep bootstrap filter (``ops/sweep_builder.py``) whose CUDA kernel
+(``csrc/sweep.cu``) is built by ``nvcc`` at first use, and the PMMH
+sampling phase (``pmmh/driver.py``). Every kernel has a plain PyTorch
+version beside it, which CPU tensors take. The JAX package
+``bayesssm_tpu`` stays the reference; this package never imports JAX.
+"""
+
+__version__ = "0.1.0"
+
+_EXPORTS = {
+    "build_sweep_op": "bayesssm_tpu_torch.ops.sweep_builder",
+    "build_sweep_pf_impl": "bayesssm_tpu_torch.ops.sweep_builder",
+    "lgss_bpf_sweep": "bayesssm_tpu_torch.ops.lgss_sweep",
+    "sir_filter_sweep": "bayesssm_tpu_torch.ops.sir_sweep",
+    "sir_bpf_sweep": "bayesssm_tpu_torch.ops.sir_sweep",
+    "sir_model": "bayesssm_tpu_torch.models.sir",
+    "sir_sweep_pf_impl": "bayesssm_tpu_torch.models.sir",
+    "simulate_sir": "bayesssm_tpu_torch.models.sir",
+    "lgss_model": "bayesssm_tpu_torch.models.lgss",
+    "simulate_lgss": "bayesssm_tpu_torch.models.lgss",
+    "ChainState": "bayesssm_tpu_torch.pmmh.driver",
+    "chain_state_from_numpy": "bayesssm_tpu_torch.pmmh.driver",
+    "init_chain_state": "bayesssm_tpu_torch.pmmh.driver",
+    "mh_step": "bayesssm_tpu_torch.pmmh.driver",
+    "sample_chains": "bayesssm_tpu_torch.pmmh.driver",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    # Lazy exports: importing the package loads no submodule.
+    if name in _EXPORTS:
+        import importlib
+
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,107 @@
+// Model functors of the whole-sweep kernel: the device copies of the
+// sweep callbacks in bayesssm_tpu_torch/ops/sir_sweep.py and
+// ops/lgss_sweep.py (JAX: ops/sir_sweep_pallas.py::sir_sweep_parts and
+// ops/lgss_sweep_pallas.py::_lgss_op). Each thread holds one particle's
+// state in registers. Expressions keep the plain version's evaluation
+// order; the library is built with --fmad=false so none is contracted.
+#pragma once
+
+#include "rng.cuh"
+
+namespace bssm {
+
+constexpr int kMaxEvents = 100000;  // ops/gillespie_pallas.py:52
+
+// Stochastic SIR: state (S, I), parameters (lam, gamma), observation row
+// (y, lgamma(y + 1)).
+struct SirModel {
+  static constexpr int D = 2;
+  static constexpr int P = 2;
+  static constexpr int DY = 2;
+  float inv_nt;  // float32(1 / n_total)
+  float s0;
+  float i0;
+  int unroll;
+
+  __device__ void init(Rng&, float st[D], const float*) const {
+    st[0] = s0;
+    st[1] = i0;
+  }
+
+  // One exact Gillespie day. The block loops while any lane of the chain
+  // is active (__syncthreads_or) and below the event cap; each iteration
+  // consumes 2 * unroll counters of the chain's stream. One log1pf and
+  // one division per event; dead lanes' inf/NaN stay behind `fire`.
+  __device__ void transition(Rng& rng, float st[D], const float* th,
+                             int) const {
+    float s = st[0];
+    float i = st[1];
+    const float lam_n = th[0] * inv_nt;
+    const float gam = th[1];
+    float tloc = 0.0f;
+    bool active = i > 0.0f;
+    int steps = 0;
+    while (__syncthreads_or(active) && steps < kMaxEvents) {
+      for (int e = 0; e < unroll; ++e) {
+        const float u0 = rng.uniform_at(rng.ctr + 2 * e);
+        const float u1 = rng.uniform_at(rng.ctr + 2 * e + 1);
+        const float rate_inf = lam_n * s * i;
+        const float rate_tot = rate_inf + gam * i;
+        const float dt = -log1pf(-u0) * (1.0f / rate_tot);
+        const float t_new = tloc + dt;
+        const bool fire = active && t_new <= 1.0f;
+        const bool infect = u1 * rate_tot < rate_inf;
+        if (fire) {
+          if (infect) {
+            s = s - 1.0f;
+            i = i + 1.0f;
+          } else {
+            i = i - 1.0f;
+          }
+          tloc = t_new;
+        }
+        active = fire && i > 0.0f;
+      }
+      rng.ctr += 2 * unroll;
+      steps += unroll;
+    }
+    st[0] = s;
+    st[1] = i;
+  }
+
+  // Poisson log-pmf in I, with I = 0 exact.
+  __device__ float log_weight(const float st[D], const float*,
+                              const float* y_t) const {
+    const float i = st[1];
+    const float y = y_t[0];
+    const float safe_i = i > 0.0f ? i : 1.0f;
+    const float lw = y * logf(safe_i) - i - y_t[1];
+    return i > 0.0f ? lw : (y == 0.0f ? 0.0f : -1e30f);
+  }
+};
+
+// Linear-Gaussian SSM: state x, parameters (a, sigma_x, sigma_y).
+struct LgssModel {
+  static constexpr int D = 1;
+  static constexpr int P = 3;
+  static constexpr int DY = 1;
+  float c;
+  float p0;
+
+  __device__ void init(Rng& rng, float st[D], const float*) const {
+    st[0] = p0 * rng.normal();
+  }
+
+  __device__ void transition(Rng& rng, float st[D], const float* th,
+                             int) const {
+    st[0] = th[0] * st[0] + th[1] * rng.normal();
+  }
+
+  __device__ float log_weight(const float st[D], const float* th,
+                              const float* y_t) const {
+    const float resid = (y_t[0] - c * st[0]) / th[2];
+    return -0.5f * resid * resid - logf(th[2]) - 0.918938533204672742f;
+  }
+};
+
+}  // namespace bssm

@@ -1,0 +1,181 @@
+"""Whole-sweep stochastic-SIR bootstrap filter — the port's main path.
+
+Port of ``bayesssm_tpu/ops/sir_sweep_pallas.py`` (BPF): the SIR callbacks
+of ``sir_sweep_parts`` (exact Gillespie day, Poisson weight with a
+precomputed ``lgamma(y + 1)`` observation column) on the batched sweep of
+``ops/sweep_builder.py``, and the entry points ``sir_filter_sweep`` /
+``sir_bpf_sweep``. ``SirModel`` in ``csrc/models.cuh`` is the kernel's
+copy of the same callbacks.
+
+The Gillespie day runs an event loop per chain: each iteration draws
+``2 * unroll`` uniform blocks and applies ``unroll`` events to every lane,
+and a chain stops when none of its lanes is active or after
+``MAX_EVENTS`` events. In the batched plain version all chains iterate
+together, but a chain's counter, event count and state move only on the
+iterations in which that chain still runs — exactly what one un-batched
+JAX call (and one kernel block) does, so every chain's result depends on
+its own stream alone. The (S, I) packing of the JAX kernel only saved
+merge-network work; a gather moves both columns exactly, so it is gone.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from bayesssm_tpu_torch.ops.sweep_builder import (
+    KernelModel,
+    build_sweep_op,
+    chain_params,
+)
+
+__all__ = ["MAX_EVENTS", "sir_sweep_parts", "sir_filter_sweep",
+           "sir_bpf_sweep"]
+
+# Cap on events per chain per day (ops/gillespie_pallas.py:52).
+MAX_EVENTS = 100_000
+_NEG = -1e30
+
+
+def sir_sweep_parts(n_total: int, init_infected: int, unroll: int = 8):
+    """The SIR model as sweep callbacks plus its CUDA functor.
+
+    Returns a dict with ``init_fn``, ``transition_fn``, ``log_weight_fn``,
+    ``obs_transform`` (appends ``lgamma(y + 1)`` as a second observation
+    column), ``num_obs_cols`` and ``kernel`` (the ``KernelModel``).
+    """
+    inv_nt = float(np.float32(1.0 / float(n_total)))
+    s0 = float(n_total - init_infected)
+    i0 = float(init_infected)
+    unroll = int(unroll)
+
+    def init_fn(rng, theta):
+        like = theta[0]
+        return torch.full_like(like, s0), torch.full_like(like, i0)
+
+    def transition_fn(rng, cols, theta, t):
+        s, i = cols
+        lam, gam = theta
+        lam_n = lam * inv_nt
+        tloc = torch.zeros_like(s)
+        active = i > 0.0
+        c = s.shape[0]
+        steps = torch.zeros((c, 1), dtype=torch.int64, device=s.device)
+        ctr = rng.counter()
+        while True:
+            go = active.any(dim=1, keepdim=True) & (steps < MAX_EVENTS)
+            if not bool(go.any()):
+                break
+            u, _ = rng.raw_uniform_blocks(2 * unroll, ctr)
+            for e in range(unroll):
+                rate_inf = lam_n * s * i
+                rate_tot = rate_inf + gam * i
+                dt = -torch.log1p(-u[2 * e]) * (1.0 / rate_tot)
+                t_new = tloc + dt
+                fire = active & go & (t_new <= 1.0)
+                infect = u[2 * e + 1] * rate_tot < rate_inf
+                s = torch.where(fire & infect, s - 1.0, s)
+                i = torch.where(fire, torch.where(infect, i + 1.0, i - 1.0),
+                                i)
+                tloc = torch.where(fire, t_new, tloc)
+                active = fire & (i > 0.0)
+            ctr = ctr + 2 * unroll * go
+            steps = steps + unroll * go
+        rng.set_counter(ctr)
+        return s, i
+
+    def log_weight_fn(cols, theta, y_t):
+        """Poisson log-pmf in the infectious count, i = 0 exact."""
+        y_v, lgy = y_t
+        i = cols[1]
+        safe_i = torch.where(i > 0.0, i, 1.0)
+        lw = y_v * torch.log(safe_i) - i - lgy
+        return torch.where(
+            i > 0.0, lw,
+            torch.where(y_v == 0.0, torch.zeros_like(lw),
+                        torch.full_like(lw, _NEG)),
+        )
+
+    def obs_transform(ys):
+        ys = torch.as_tensor(ys, dtype=torch.float32).reshape(-1)
+        return torch.stack([ys, torch.lgamma(ys + 1.0)], dim=1)
+
+    return dict(
+        init_fn=init_fn,
+        transition_fn=transition_fn,
+        log_weight_fn=log_weight_fn,
+        obs_transform=obs_transform,
+        num_obs_cols=2,
+        kernel=KernelModel("bssm_sweep_sir", (inv_nt, s0, i0, unroll)),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _sir_op(n_total, init_infected, unroll, method, always_resample,
+            never_resample):
+    parts = sir_sweep_parts(n_total, init_infected, unroll=unroll)
+    return build_sweep_op(
+        2, parts["init_fn"], parts["transition_fn"], parts["log_weight_fn"],
+        2, resample_fn=method, always_resample=always_resample,
+        never_resample=never_resample, num_obs_cols=2,
+        kernel=parts["kernel"],
+    ), parts["obs_transform"]
+
+
+def sir_filter_sweep(
+    seed_words,
+    y,
+    num_particles,
+    lam,
+    gamma,
+    n_total,
+    init_infected,
+    algorithm: str = "BPF",
+    max_particles: int | None = None,
+    resample_fn: str = "stratified",
+    resample_algorithm: str = "SISAR",
+    threshold=None,
+    unroll: int = 8,
+):
+    """SIR particle-filter sweep for ``C`` chains.
+
+    ``seed_words [C, 2]`` fixes the batch and the device; ``lam``,
+    ``gamma`` and ``num_particles`` are scalars or ``[C]`` tensors; ``y``
+    is the raw ``[T]`` count series. Returns ``(loglike [C],
+    state_est [C, T+1, 2])``.
+    """
+    if algorithm not in ("BPF", "APF", "RMPF"):
+        raise ValueError("algorithm must be one of ('BPF', 'APF', 'RMPF')")
+    if resample_algorithm not in ("SIS", "SISR", "SISAR"):
+        raise ValueError("sir_filter_sweep supports SIS, SISR or SISAR")
+    if resample_fn not in ("stratified", "systematic", "multinomial"):
+        raise ValueError(f"unknown resample_fn {resample_fn!r}")
+    if resample_fn == "multinomial":
+        raise ValueError(
+            "the whole-sweep selection requires sorted positions "
+            "(stratified/systematic); multinomial resampling belongs to the "
+            "per-day engine"
+        )
+    if algorithm != "BPF":
+        raise NotImplementedError(
+            f"{algorithm} sweeps are not ported yet (ROADMAP Queue 1, APF, "
+            "RMPF, obs_gaps and multivariate y in K1)"
+        )
+    op, obs_transform = _sir_op(
+        int(n_total), int(init_infected), int(unroll), resample_fn,
+        resample_algorithm == "SISR", resample_algorithm == "SIS",
+    )
+    words = torch.as_tensor(seed_words, dtype=torch.int64)
+    y2 = obs_transform(torch.as_tensor(y, dtype=torch.float32,
+                                       device=words.device))
+    return op(words, y2, chain_params(words, lam, gamma), num_particles, max_particles=max_particles,
+              threshold=threshold)
+
+
+def sir_bpf_sweep(seed_words, y, num_particles, lam, gamma, n_total,
+                  init_infected, **kw):
+    """Bootstrap-filter specialization of :func:`sir_filter_sweep`."""
+    return sir_filter_sweep(seed_words, y, num_particles, lam, gamma,
+                            n_total, init_infected, algorithm="BPF", **kw)

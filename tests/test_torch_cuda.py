@@ -1,0 +1,99 @@
+"""CUDA kernels of the port against their plain PyTorch versions, on the
+card. Every test here needs an NVIDIA GPU with ``nvcc`` (``-m cuda``) and
+skips without one; ``chip_smoke.py`` runs the same checks at the main
+path's full shapes."""
+
+import numpy as np
+import pytest
+import torch
+
+from bayesssm_tpu_torch.models.lgss import simulate_lgss
+from bayesssm_tpu_torch.models.sir import simulate_sir
+from bayesssm_tpu_torch.ops import _build
+from bayesssm_tpu_torch.ops.lgss_sweep import _lgss_op
+from bayesssm_tpu_torch.ops.merge_select import (
+    select_cols,
+    select_cols_reference,
+)
+from bayesssm_tpu_torch.ops.sir_sweep import _sir_op
+from bayesssm_tpu_torch.ops.sweep_builder import build_sweep_op, cdf_ext
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _words(c, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(
+        rng.integers(0, 2**32, (c, 2), dtype=np.uint64).astype(np.int64),
+        device=dev)
+
+
+@pytest.mark.parametrize("n", [128, 512])
+def test_select_kernel_bitwise(dev, n):
+    rng = np.random.default_rng(n)
+    r = 16
+    w = rng.random((r, n)).astype(np.float32)
+    w[rng.random((r, n)) < 0.3] = 0.0
+    w /= w.sum(axis=1, keepdims=True)
+    lane = torch.arange(n, dtype=torch.float32, device=dev)[None, :]
+    alive = torch.full((r, 1), float(n - 7), device=dev)
+    cdf = cdf_ext(torch.as_tensor(w, device=dev), lane, alive)
+    pos = torch.rand((r, n), device=dev)
+    cols = [torch.randn((r, n), device=dev) for _ in range(3)]
+    before = _build.launches["bssm_select"]
+    got = select_cols(cdf, pos, cols)
+    assert _build.launches["bssm_select"] == before + 1
+    for a, b in zip(got, select_cols_reference(cdf, pos, cols)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("algo,method,alive", [
+    ("SISAR", "stratified", 256), ("SISR", "systematic", 200),
+    ("SIS", "stratified", 256),
+])
+def test_lgss_kernel_matches_plain_sweep(dev, algo, method, alive):
+    _, y = simulate_lgss(11, t_val=12)
+    op = _lgss_op(1.0, 1.0, method, algo == "SISR", algo == "SIS")
+    c = 64
+    theta = torch.tensor([[0.9, 0.6, 0.4]], device=dev).expand(c, 3)
+    words = _words(c, 1, dev)
+    ll, est = op(words, y, theta, float(alive), max_particles=256)
+    ll_p, est_p = op.sweep_reference(words, y, theta, float(alive),
+                                     max_particles=256)
+    assert torch.isfinite(ll).all()
+    diff = (ll - ll_p).abs()
+    assert float((diff <= 1e-3).float().mean()) >= 0.99
+    assert float((est - est_p).abs().median()) <= 1e-4
+
+
+def test_sir_kernel_matches_plain_sweep(dev):
+    _, y = simulate_sir(seed=1405)
+    op, obs = _sir_op(500, 70, 8, "stratified", False, False)
+    y2 = obs(torch.as_tensor(y, device=dev))
+    c = 256
+    theta = torch.tensor([[0.5, 0.2]], device=dev).expand(c, 2).contiguous()
+    words = _words(c, 2, dev)
+    before = _build.launches["bssm_sweep_sir"]
+    ll, est = op(words, y2, theta, 128)
+    ll2, _ = op(words, y2, theta, 128)
+    assert _build.launches["bssm_sweep_sir"] == before + 2
+    ll_p, _ = op.sweep_reference(words, y2, theta, 128)
+    assert torch.equal(ll, ll2) and torch.isfinite(est).all()
+    assert float(((ll - ll_p).abs() <= 1e-3).float().mean()) >= 0.99
+
+
+def test_callbacks_without_a_kernel_raise_on_cuda(dev):
+    op = build_sweep_op(1, lambda rng, th: (th[0] * 0,),
+                        lambda rng, cols, th, t: cols,
+                        lambda cols, th, y: cols[0] * 0, 1)
+    words = _words(2, 3, dev)
+    with pytest.raises(NotImplementedError, match="CUDA kernel"):
+        op(words, torch.zeros(3), torch.zeros((2, 1), device=dev), 128)

@@ -1,0 +1,69 @@
+"""The port imports no JAX: the machine with the GPU has none."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "bayesssm_tpu_torch"
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "bayesssm_tpu"), (path, name)
+
+
+def test_port_runs_with_jax_blocked():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["bayesssm_tpu"] = None
+        import numpy as np, torch
+        torch.set_num_threads(1)
+        from bayesssm_tpu_torch.models.sir import (
+            simulate_sir, sir_model, sir_sweep_pf_impl)
+        from bayesssm_tpu_torch.pmmh.driver import (
+            init_chain_state, sample_chains)
+        from bayesssm_tpu_torch.pmmh.transforms import resolve_transforms
+        _, y = simulate_sir(seed=7, n_total=100, init_infected=10, t_max=4)
+        lp, tr = sir_model()
+        names = list(lp)
+        pf = sir_sweep_pf_impl(100, 10)(
+            y, 128, names, None, None, "BPF", "SISAR", "stratified", False,
+            max_particles=128)
+        state = init_chain_state(
+            [0.4, 0.25], np.tile(np.eye(2, dtype=np.float32) * 0.1,
+                                 (4, 1, 1)), 128, 3, "cpu")
+        out = sample_chains(pf, state, 3, 1, [lp[p] for p in names],
+                            resolve_transforms(tr, names))
+        assert out.samples.shape == (4, 2, 2)
+        assert np.isfinite(out.samples).all()
+        assert not any(m.split(".")[0] in ("jax", "jaxlib")
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

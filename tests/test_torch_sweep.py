@@ -1,0 +1,235 @@
+"""The port's whole-sweep filter against the JAX package, per key.
+
+Each JAX reference is an UN-vmapped ``interpret=True`` call: one chain per
+program, whose software stream the port reproduces (a vmapped call uses
+the block layout and draws another stream). The port runs all keys of a
+case as one batch. Tolerances: LGSS 1e-4 in loglike and state estimates
+(f32 ulps of the transcendental functions); SIR 1e-3 in loglike (f32
+``lgamma(y + 1)`` differs by a few ulps between the libraries, over T
+days).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bayesssm_tpu.ops.lgss_sweep_pallas import lgss_bpf_sweep as j_lgss
+from bayesssm_tpu.ops.sir_sweep_pallas import sir_filter_sweep as j_sir
+from bayesssm_tpu_torch.models.lgss import simulate_lgss
+from bayesssm_tpu_torch.models.sir import simulate_sir, sir_sweep_pf_impl
+from bayesssm_tpu_torch.ops import _build
+from bayesssm_tpu_torch.ops.lgss_sweep import lgss_bpf_sweep
+from bayesssm_tpu_torch.ops.sir_sweep import sir_bpf_sweep, sir_filter_sweep
+from bayesssm_tpu_torch.ops.sweep_builder import build_sweep_op
+from bayesssm_tpu_torch.utils.kalman import kalman_loglik
+
+torch.set_num_threads(1)
+
+A, SX, SY = 0.9, 0.6, 0.4
+N_TOTAL, I0, LAM, GAM = 100, 10, 0.4, 0.25
+N = 128
+KEYS = 4
+
+
+@pytest.fixture(scope="module")
+def lgss_y():
+    _, y = simulate_lgss(11, t_val=12, a=A, sigma_x=SX, sigma_y=SY)
+    return y.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def sir_y():
+    _, y = simulate_sir(seed=7, n_total=N_TOTAL, init_infected=I0, t_max=6)
+    return y.astype(np.float32)
+
+
+def _key_words(first, count=KEYS):
+    return np.stack([np.asarray(jax.random.key_data(jax.random.key(k)))
+                     for k in range(first, first + count)])
+
+
+def _torch_words(kd):
+    return torch.as_tensor(kd.astype(np.int64))
+
+
+def _jax_per_key(fn, kd):
+    f = jax.jit(lambda w: fn(jax.random.wrap_key_data(w)))
+    outs = [f(jnp.asarray(w)) for w in kd]
+    return (np.array([float(o[0]) for o in outs]),
+            np.stack([np.asarray(o[1]) for o in outs]))
+
+
+@pytest.mark.parametrize("algo,method,alive", [
+    ("SIS", "stratified", 128), ("SIS", "systematic", 128),
+    ("SISR", "stratified", 128), ("SISR", "systematic", 128),
+    ("SISAR", "stratified", 128), ("SISAR", "systematic", 128),
+    ("SISAR", "stratified", 100),
+])
+def test_lgss_matches_jax_per_key(lgss_y, algo, method, alive):
+    kd = _key_words(10)
+    jll, jest = _jax_per_key(
+        lambda k: j_lgss(k, jnp.asarray(lgss_y), float(alive), A, SX, SY,
+                         max_particles=N, resample_fn=method,
+                         resample_algorithm=algo, interpret=True), kd)
+    ll, est = lgss_bpf_sweep(_torch_words(kd), lgss_y, float(alive), A, SX,
+                             SY, max_particles=N, resample_fn=method,
+                             resample_algorithm=algo)
+    assert ll.shape == (KEYS,) and est.shape == (KEYS, len(lgss_y) + 1)
+    np.testing.assert_allclose(ll.numpy(), jll, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(est.numpy(), jest, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("alive", [128, 100])
+def test_sir_matches_jax_per_key(sir_y, alive):
+    kd = _key_words(20)
+    jll, jest = _jax_per_key(
+        lambda k: j_sir(k, jnp.asarray(sir_y), float(alive), LAM, GAM,
+                        N_TOTAL, I0, max_particles=N, interpret=True), kd)
+    ll, est = sir_bpf_sweep(_torch_words(kd), sir_y, float(alive), LAM, GAM,
+                            N_TOTAL, I0, max_particles=N)
+    assert est.shape == (KEYS, len(sir_y) + 1, 2)
+    np.testing.assert_allclose(ll.numpy(), jll, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(est.numpy(), jest, rtol=0, atol=1e-3)
+
+
+def test_sir_bench_data_matches_jax_per_key():
+    _, y = simulate_sir(seed=1405)
+    ys = y.astype(np.float32)
+    kd = _key_words(0, 2)
+    jll, _ = _jax_per_key(
+        lambda k: j_sir(k, jnp.asarray(ys), 128.0, 0.5, 0.2, 500, 70,
+                        interpret=True), kd)
+    ll, _ = sir_bpf_sweep(_torch_words(kd), ys, 128, 0.5, 0.2, 500, 70)
+    np.testing.assert_allclose(ll.numpy(), jll, rtol=0, atol=1e-3)
+
+
+def test_batched_twin_equals_chains_one_at_a_time(sir_y):
+    """Per-chain counters: a batch of 8 chains with different parameters
+    gives each chain exactly its solo result."""
+    kd = _key_words(30, 8)
+    words = _torch_words(kd)
+    lam = torch.linspace(0.2, 0.9, 8)
+    gam = torch.linspace(0.1, 0.4, 8)
+    ll, est = sir_bpf_sweep(words, sir_y, N, lam, gam, N_TOTAL, I0)
+    for c in range(8):
+        l1, e1 = sir_bpf_sweep(words[c:c + 1], sir_y, N, lam[c], gam[c],
+                               N_TOTAL, I0)
+        assert torch.equal(l1[0], ll[c]) and torch.equal(e1[0], est[c])
+
+
+def test_degenerate_observation_gives_neg_inf(sir_y):
+    y_bad = sir_y.copy()
+    y_bad[2] = 1.0e7
+    ll, est = sir_bpf_sweep(_torch_words(_key_words(0)), y_bad, N, LAM, GAM,
+                            N_TOTAL, I0)
+    assert torch.isinf(ll).all() and (ll < 0).all()
+    assert np.allclose(est.numpy()[:, 3:], 0.0)
+
+
+def test_sisr_mean_matches_kalman(lgss_y):
+    c = 256
+    rng = np.random.default_rng(0)
+    words = torch.as_tensor(
+        rng.integers(0, 2**32, (c, 2), dtype=np.uint64).astype(np.int64))
+    ll, _ = lgss_bpf_sweep(words, lgss_y, N, A, SX, SY,
+                           resample_algorithm="SISR")
+    lls = ll.double().numpy()
+    assert np.isfinite(lls).all()
+    truth = kalman_loglik(lgss_y, A, 1.0, SX, SY, p0=1.0)
+    se = lls.std() / np.sqrt(c)
+    assert abs(lls.mean() - truth) < max(5 * se, 0.1), (lls.mean(), truth)
+
+
+def test_deterministic_and_cpu_only(sir_y):
+    before = dict(_build.launches)
+    words = _torch_words(_key_words(5))
+    a = sir_bpf_sweep(words, sir_y, N, LAM, GAM, N_TOTAL, I0)
+    b = sir_bpf_sweep(words, sir_y, N, LAM, GAM, N_TOTAL, I0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert _build.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        _build.launch_sweep(None, words, None, torch.zeros(4, 2), None,
+                            None, N, d=2, mode=0, systematic=False)
+
+
+def test_validation_errors(sir_y, lgss_y):
+    w = _torch_words(_key_words(0, 1))
+    with pytest.raises(ValueError, match="SIS, SISR or SISAR"):
+        sir_bpf_sweep(w, sir_y, N, LAM, GAM, N_TOTAL, I0,
+                      resample_algorithm="bogus")
+    for bad in (100, 384, 2048):
+        with pytest.raises(ValueError, match="power of two"):
+            sir_bpf_sweep(w, sir_y, bad, LAM, GAM, N_TOTAL, I0)
+        with pytest.raises(ValueError, match="power of two"):
+            lgss_bpf_sweep(w, lgss_y, bad, A, SX, SY)
+    with pytest.raises(ValueError, match="resample_fn"):
+        sir_bpf_sweep(w, sir_y, N, LAM, GAM, N_TOTAL, I0,
+                      resample_fn="bogus")
+    with pytest.raises(ValueError, match="per-day"):
+        sir_bpf_sweep(w, sir_y, N, LAM, GAM, N_TOTAL, I0,
+                      resample_fn="multinomial")
+    with pytest.raises(ValueError, match="algorithm"):
+        sir_filter_sweep(w, sir_y, N, LAM, GAM, N_TOTAL, I0, algorithm="X")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sir_filter_sweep(w, sir_y, N, LAM, GAM, N_TOTAL, I0, algorithm="APF")
+    with pytest.raises(ValueError, match="sorted positions"):
+        lgss_bpf_sweep(w, lgss_y, N, A, SX, SY, resample_fn="multinomial")
+    with pytest.raises(ValueError, match="SIS, SISR or SISAR"):
+        lgss_bpf_sweep(w, lgss_y, N, A, SX, SY, resample_algorithm="bogus")
+    with pytest.raises(ValueError, match="seed_words"):
+        lgss_bpf_sweep(torch.zeros(1, 3, dtype=torch.int64), lgss_y, N, A,
+                       SX, SY)
+
+
+def test_builder_argument_checks():
+    def f(*a):
+        return a
+
+    with pytest.raises(ValueError, match="sorted positions"):
+        build_sweep_op(1, f, f, f, 1, resample_fn="multinomial")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        build_sweep_op(1, f, f, f, 1, always_resample=True,
+                       never_resample=True)
+    with pytest.raises(ValueError, match=">= 1"):
+        build_sweep_op(1, f, f, f, 1, obs_gaps=(1, 0))
+    with pytest.raises(NotImplementedError, match="obs_gaps"):
+        build_sweep_op(1, f, f, f, 1, obs_gaps=(1, 2))
+    build_sweep_op(1, f, f, f, 1, obs_gaps=(1, 1))  # contiguous is fine
+    with pytest.raises(NotImplementedError, match="APF"):
+        build_sweep_op(1, f, f, f, 1, aux_log_weight_fn=f)
+    with pytest.raises(ValueError, match=r"\[T, 2\]"):
+        op = build_sweep_op(1, f, f, f, 1, num_obs_cols=2)
+        op(torch.zeros(1, 2, dtype=torch.int64), np.zeros(5), [[0.1]], 128)
+
+
+def test_pf_impl_factory(sir_y):
+    factory = sir_sweep_pf_impl(N_TOTAL, I0)
+    kw = dict(y=sir_y, num_particles=N, param_names=["lam", "gamma"],
+              model_fns=None, obs_times=None, algorithm="BPF",
+              resample_algorithm="SISAR", resample_fn="stratified",
+              carry_weights=False)
+    pf = factory(**kw)
+    words = _torch_words(_key_words(40, 3))
+    theta = torch.tensor([[0.4, 0.25], [0.5, 0.2], [0.3, 0.3]])
+    ll, est = pf(words, theta)
+    # The caller's parameter order is permuted into the sweep's.
+    pf_swapped = factory(**{**kw, "param_names": ["gamma", "lam"]})
+    ll2, _ = pf_swapped(words, theta[:, [1, 0]])
+    assert torch.equal(ll, ll2)
+    want, _ = sir_bpf_sweep(words, sir_y, N, theta[:, 0], theta[:, 1],
+                            N_TOTAL, I0)
+    assert torch.equal(ll, want) and est.shape == (3, len(sir_y) + 1, 2)
+    with pytest.raises(ValueError, match="BPF, APF or RMPF"):
+        factory(**{**kw, "algorithm": "SIS"})
+    for algo in ("APF", "RMPF"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            factory(**{**kw, "algorithm": algo})
+    with pytest.raises(NotImplementedError, match="obs_times"):
+        factory(**{**kw, "obs_times": [1, 3]})
+    with pytest.raises(ValueError, match="fresh-weight"):
+        factory(**{**kw, "carry_weights": True})
+    for names in (["a", "b"], ["lam", "lam"], ["lam", "gamma", "gamma"]):
+        with pytest.raises(ValueError, match="lam"):
+            factory(**{**kw, "param_names": names})
