@@ -1,16 +1,24 @@
 """bayesssm_tpu_torch — the PyTorch + CUDA port of ``bayesssm_tpu``.
 
-Runs the stochastic-SIR PMMH main path on an NVIDIA H100: a batched
-whole-sweep bootstrap filter (``ops/sweep_builder.py``) whose CUDA kernel
-(``csrc/sweep.cu``) is built by ``nvcc`` at first use, and the PMMH
-sampling phase (``pmmh/driver.py``). Every kernel has a plain PyTorch
-version beside it, which CPU tensors take. The JAX package
-``bayesssm_tpu`` stays the reference; this package never imports JAX.
+Runs stochastic-SIR PMMH on an NVIDIA H100 along two paths: the batched
+whole-sweep bootstrap filter (``ops/sweep_builder.py``, CUDA kernel
+``csrc/sweep.cu``), and the generic particle-filter engine
+(``filters/core.py``, ``bootstrap_filter``) with its per-day kernels, the
+fused weight step (``csrc/resample.cu``) and the Gillespie day-step
+(``csrc/gillespie.cu``); both feed the PMMH sampling phase
+(``pmmh/driver.py``). The kernels are built by ``nvcc`` at first use, and
+every kernel has a plain PyTorch version beside it, which CPU tensors
+take. The JAX package ``bayesssm_tpu`` stays the reference; this package
+never imports JAX.
 """
 
 __version__ = "0.1.0"
 
 _EXPORTS = {
+    "bootstrap_filter": "bayesssm_tpu_torch.filters.bootstrap",
+    "particle_filter_core": "bayesssm_tpu_torch.filters.core",
+    "FilterConfig": "bayesssm_tpu_torch.filters.core",
+    "FilterResult": "bayesssm_tpu_torch.filters.core",
     "build_sweep_op": "bayesssm_tpu_torch.ops.sweep_builder",
     "build_sweep_pf_impl": "bayesssm_tpu_torch.ops.sweep_builder",
     "lgss_bpf_sweep": "bayesssm_tpu_torch.ops.lgss_sweep",

@@ -1,5 +1,6 @@
-// Model functors of the whole-sweep kernel: the device copies of the
-// sweep callbacks in bayesssm_tpu_torch/ops/sir_sweep.py and
+// Model functors of the whole-sweep kernel, and the SIR day loop it shares
+// with the Gillespie day-step kernel (gillespie.cu): the device copies of
+// the sweep callbacks in bayesssm_tpu_torch/ops/sir_sweep.py and
 // ops/lgss_sweep.py (JAX: ops/sir_sweep_pallas.py::sir_sweep_parts and
 // ops/lgss_sweep_pallas.py::_lgss_op). Each thread holds one particle's
 // state in registers. Expressions keep the plain version's evaluation
@@ -11,6 +12,47 @@
 namespace bssm {
 
 constexpr int kMaxEvents = 100000;  // ops/gillespie_pallas.py:52
+
+// The exact SIR jump process over [0, t_end] for one lane: the event body
+// of the JAX package's SIR sweep callback (ops/sir_sweep_pallas.py:119-133)
+// and of its Gillespie day-step kernel (ops/gillespie_pallas.py:159-174),
+// written once for the sweep's SirModel and the day-step kernel
+// (gillespie.cu). The block loops while any lane of the chain is active
+// (__syncthreads_or) and below the event cap; each iteration consumes
+// 2 * unroll counters of the chain's stream. One log1pf and one division
+// per event; dead lanes' inf/NaN stay behind `fire`. Every thread of the
+// block must call it.
+__device__ __forceinline__ void sir_day(Rng& rng, float& s, float& i,
+                                        float lam_n, float gam, float t_end,
+                                        int unroll) {
+  float tloc = 0.0f;
+  bool active = i > 0.0f;
+  int steps = 0;
+  while (__syncthreads_or(active) && steps < kMaxEvents) {
+    for (int e = 0; e < unroll; ++e) {
+      const float u0 = rng.uniform_at(rng.ctr + 2 * e);
+      const float u1 = rng.uniform_at(rng.ctr + 2 * e + 1);
+      const float rate_inf = lam_n * s * i;
+      const float rate_tot = rate_inf + gam * i;
+      const float dt = -log1pf(-u0) * (1.0f / rate_tot);
+      const float t_new = tloc + dt;
+      const bool fire = active && t_new <= t_end;
+      const bool infect = u1 * rate_tot < rate_inf;
+      if (fire) {
+        if (infect) {
+          s = s - 1.0f;
+          i = i + 1.0f;
+        } else {
+          i = i - 1.0f;
+        }
+        tloc = t_new;
+      }
+      active = fire && i > 0.0f;
+    }
+    rng.ctr += 2 * unroll;
+    steps += unroll;
+  }
+}
 
 // Stochastic SIR: state (S, I), parameters (lam, gamma), observation row
 // (y, lgamma(y + 1)).
@@ -28,45 +70,10 @@ struct SirModel {
     st[1] = i0;
   }
 
-  // One exact Gillespie day. The block loops while any lane of the chain
-  // is active (__syncthreads_or) and below the event cap; each iteration
-  // consumes 2 * unroll counters of the chain's stream. One log1pf and
-  // one division per event; dead lanes' inf/NaN stay behind `fire`.
+  // One exact Gillespie day: sir_day over [0, 1].
   __device__ void transition(Rng& rng, float st[D], const float* th,
                              int) const {
-    float s = st[0];
-    float i = st[1];
-    const float lam_n = th[0] * inv_nt;
-    const float gam = th[1];
-    float tloc = 0.0f;
-    bool active = i > 0.0f;
-    int steps = 0;
-    while (__syncthreads_or(active) && steps < kMaxEvents) {
-      for (int e = 0; e < unroll; ++e) {
-        const float u0 = rng.uniform_at(rng.ctr + 2 * e);
-        const float u1 = rng.uniform_at(rng.ctr + 2 * e + 1);
-        const float rate_inf = lam_n * s * i;
-        const float rate_tot = rate_inf + gam * i;
-        const float dt = -log1pf(-u0) * (1.0f / rate_tot);
-        const float t_new = tloc + dt;
-        const bool fire = active && t_new <= 1.0f;
-        const bool infect = u1 * rate_tot < rate_inf;
-        if (fire) {
-          if (infect) {
-            s = s - 1.0f;
-            i = i + 1.0f;
-          } else {
-            i = i - 1.0f;
-          }
-          tloc = t_new;
-        }
-        active = fire && i > 0.0f;
-      }
-      rng.ctr += 2 * unroll;
-      steps += unroll;
-    }
-    st[0] = s;
-    st[1] = i;
+    sir_day(rng, st[0], st[1], th[0] * inv_nt, th[1], 1.0f, unroll);
   }
 
   // Poisson log-pmf in I, with I = 0 exact.

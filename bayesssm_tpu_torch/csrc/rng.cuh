@@ -36,6 +36,16 @@ __device__ __forceinline__ uint32_t lane_key(uint32_t s0, uint32_t s1,
   return hash32(base + lane * 0x9E3779B9u) ^ row_mix(s0, s1);
 }
 
+// Uniform of the fused weight step's in-kernel positions
+// (bayesssm_tpu/ops/resampling_pallas.py:156-166, one chain per program):
+// the row mix sits inside the hash and there is no draw counter.
+__device__ __forceinline__ float position_uniform(uint32_t s0, uint32_t s1,
+                                                  uint32_t lane) {
+  const uint32_t base = hash32(s0 ^ hash32(s1 ^ hash32(0u)));
+  const uint32_t bits = hash32((base + lane * 0x9E3779B9u) ^ row_mix(s0, s1));
+  return (float)(bits >> 8) * (1.0f / 16777216.0f);
+}
+
 // One lane's view of its chain's stream. `ctr` is the chain's draw
 // counter: every thread of a block advances it identically.
 struct Rng {

@@ -26,6 +26,7 @@
 #include <cstdint>
 
 #include "models.cuh"
+#include "reduce.cuh"
 #include "rng.cuh"
 #include "select.cuh"
 
@@ -35,33 +36,6 @@ constexpr float kNeg = -1e30f;
 constexpr float kDegenerate = -1e8f;
 constexpr float kSentinel = 1.5f;
 enum Mode { kAdaptive = 0, kAlways = 1, kNever = 2 };
-
-// Halving-tree block sum: red[l] += red[l + s] for s = n/2 .. 1.
-__device__ float block_sum(float v, float* red) {
-  const int n = blockDim.x, l = threadIdx.x;
-  red[l] = v;
-  __syncthreads();
-  for (int s = n >> 1; s > 0; s >>= 1) {
-    if (l < s) red[l] = red[l] + red[l + s];
-    __syncthreads();
-  }
-  const float r = red[0];
-  __syncthreads();
-  return r;
-}
-
-__device__ float block_max(float v, float* red) {
-  const int n = blockDim.x, l = threadIdx.x;
-  red[l] = v;
-  __syncthreads();
-  for (int s = n >> 1; s > 0; s >>= 1) {
-    if (l < s) red[l] = nan_max(red[l], red[l + s]);
-    __syncthreads();
-  }
-  const float r = red[0];
-  __syncthreads();
-  return r;
-}
 
 template <class M>
 __global__ void sweep_kernel(const int* __restrict__ seeds,

@@ -27,17 +27,21 @@ _F32 = torch.float32
 
 def _t(v, like=None) -> torch.Tensor:
     device = like.device if isinstance(like, torch.Tensor) else None
+    if device is not None and isinstance(v, (int, float)):
+        # A fill, not a copy from the host: no stream sync on a GPU.
+        return torch.full((), float(v), dtype=_F32, device=device)
     return torch.as_tensor(v, dtype=_F32, device=device)
 
 
-_LOG_2PI = torch.log(_t(2.0 * math.pi))
+# float32 log(2 pi), as a Python float that converts back exactly.
+_LOG_2PI = float(torch.log(torch.tensor(2.0 * math.pi, dtype=_F32)))
 
 
 def norm_logpdf(x, mean=0.0, sd=1.0):
     """log N(x; mean, sd) — R's dnorm(log=TRUE)."""
     x = _t(x)
     z = (x - _t(mean, x)) / _t(sd, x)
-    return -0.5 * (_LOG_2PI.to(x.device) + z * z) - torch.log(_t(sd, x))
+    return -0.5 * (_LOG_2PI + z * z) - torch.log(_t(sd, x))
 
 
 def exp_logpdf(x, rate=1.0):
@@ -93,7 +97,7 @@ def halfnorm_logpdf(x, sigma=1.0):
     sigma = _t(sigma, x)
     return torch.where(
         x >= 0,
-        torch.log(_t(2.0, x)) - 0.5 * _LOG_2PI.to(x.device)
+        torch.log(_t(2.0, x)) - 0.5 * _LOG_2PI
         - torch.log(sigma) - 0.5 * (x / sigma) ** 2,
         _t(-math.inf, x),
     )

@@ -9,20 +9,45 @@ from __future__ import annotations
 
 import numpy as np
 
-from bayesssm_tpu_torch.models.distributions import exp_logpdf, unif_logpdf
+from bayesssm_tpu_torch.models.distributions import (
+    exp_logpdf,
+    norm_logpdf,
+    unif_logpdf,
+)
+from bayesssm_tpu_torch.ops import threefry
 
 __all__ = ["lgss_model", "simulate_lgss"]
 
 
-def lgss_model():
-    """``(log_priors, param_transform)``; theta = (a, sigma_x, sigma_y)."""
+def lgss_model(c: float = 1.0, p0: float = 1.0):
+    """``(model_fns, log_priors, param_transform)`` with the JAX function's
+    signature and return value; theta = (a, sigma_x, sigma_y).
+
+    ``model_fns`` is ``(init_fn, transition_fn, log_likelihood_fn)`` written
+    for the engine (``filters/core.py``): particles ``[C, N]``, parameters
+    ``[C]``, and normals drawn by ``ops/threefry.py`` from each chain's key,
+    as ``jax.random.normal`` draws them. The log-marginal likelihood has an
+    exact Kalman value (``utils/kalman.py``), the engine's anchor.
+    """
+
+    def init_fn(key, num_particles):
+        return p0 * threefry.normal(key, (num_particles,))
+
+    def transition_fn(key, particles, a, sigma_x):
+        return (a[:, None] * particles
+                + sigma_x[:, None] * threefry.normal(key, particles.shape[1:]))
+
+    def log_likelihood_fn(y, particles, sigma_y):
+        return norm_logpdf(y, mean=c * particles, sd=sigma_y[:, None])
+
     log_priors = {
         "a": lambda v: unif_logpdf(v, -1.0, 1.0),
         "sigma_x": lambda v: exp_logpdf(v, 1.0),
         "sigma_y": lambda v: exp_logpdf(v, 1.0),
     }
     param_transform = {"a": "identity", "sigma_x": "log", "sigma_y": "log"}
-    return log_priors, param_transform
+    return ((init_fn, transition_fn, log_likelihood_fn), log_priors,
+            param_transform)
 
 
 def simulate_lgss(seed, t_val=25, a=0.9, c=1.0, sigma_x=0.6, sigma_y=0.4,

@@ -5,28 +5,91 @@ lam / n_total * S * I, removal rate gamma * I; observation
 ``Y_t ~ Pois(I(t))`` at integer times. Priors lam ~ HalfNormal(1),
 gamma ~ HalfNormal(2), both log-transformed.
 
-The port's SIR filter is the whole-sweep op (``ops/sir_sweep.py``); the
-portable per-day model functions wait for the portable filter engine
-(ROADMAP Queue 1).
+Two filters run it: the generic engine (``filters/core.py``) with the
+model functions of :func:`sir_model`, whose transition is the per-day
+Gillespie step (``ops/gillespie.py``, kernel K4), and the whole-sweep op
+(``ops/sir_sweep.py``, kernel K1) behind :func:`sir_sweep_pf_impl`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from bayesssm_tpu_torch.models.distributions import halfnorm_logpdf
+from bayesssm_tpu_torch.models.distributions import (
+    halfnorm_logpdf,
+    pois_logpmf,
+)
 
 __all__ = ["sir_model", "sir_sweep_pf_impl", "simulate_sir"]
 
+TRANSITIONS = ("gillespie", "gillespie_pallas", "tauleap")
 
-def sir_model():
-    """``(log_priors, param_transform)`` of the SIR model."""
+
+def sir_model(
+    n_total: int = 500,
+    init_infected: int = 70,
+    transition: str = "gillespie",
+    substeps: int = 10,
+    pallas_interpret: bool = False,
+):
+    """``(model_fns, log_priors, param_transform)`` for the SIR model, with
+    the JAX function's signature and return value; ``model_fns`` is
+    ``(init_fn, transition_fn, log_likelihood_fn)`` written for the engine
+    (``filters/core.py``: ``key [C, 2]``, particles ``[C, N, 2]``, ``lam``
+    and ``gamma`` ``[C]``).
+
+    ``transition``:
+
+    * ``"gillespie_pallas"`` — the exact jump process through the per-day
+      step ``ops/gillespie.py`` (its CUDA kernel on the card), drawing the
+      JAX kernel's stream: it agrees with the JAX ``"gillespie_pallas"``
+      per key;
+    * ``"gillespie"`` — the same op. The JAX ``"gillespie"`` re-keys its
+      loop onto an ``rbg`` generator that cannot be matched key by key, so
+      the two agree in distribution only;
+    * ``"tauleap"`` — not ported yet (ROADMAP Queue 1, tauleap and the
+      other models).
+
+    ``substeps`` belongs to ``"tauleap"``. ``pallas_interpret`` is accepted
+    and ignored: the port picks the implementation by device (the plain
+    version for CPU tensors, the kernel for CUDA tensors).
+    """
+    del substeps, pallas_interpret
+    if transition not in TRANSITIONS:
+        raise ValueError(
+            "transition must be 'gillespie', 'gillespie_pallas' or 'tauleap'"
+        )
+    if transition == "tauleap":
+        raise NotImplementedError(
+            "transition='tauleap' is not ported yet (ROADMAP Queue 1, "
+            "tauleap and the other models)"
+        )
+    from bayesssm_tpu_torch.ops.gillespie import gillespie_step
+
+    s0 = float(n_total - init_infected)
+    i0 = float(init_infected)
+
+    def init_fn(key, num_particles):
+        c = key.shape[0]
+        return torch.stack([
+            torch.full((c, num_particles), s0, device=key.device),
+            torch.full((c, num_particles), i0, device=key.device),
+        ], dim=-1)
+
+    def transition_fn(key, particles, lam, gamma):
+        return gillespie_step(key, particles, lam, gamma, float(n_total))
+
+    def log_likelihood_fn(y, particles):
+        return pois_logpmf(y, particles[..., 1])
+
     log_priors = {
         "lam": lambda v: halfnorm_logpdf(v, 1.0),
         "gamma": lambda v: halfnorm_logpdf(v, 2.0),
     }
     param_transform = {"lam": "log", "gamma": "log"}
-    return log_priors, param_transform
+    return ((init_fn, transition_fn, log_likelihood_fn), log_priors,
+            param_transform)
 
 
 def sir_sweep_pf_impl(n_total: int = 500, init_infected: int = 70,

@@ -34,6 +34,7 @@ __all__ = [
     "mul32",
     "lane_keys",
     "uniform_blocks",
+    "position_uniforms",
     "box_muller",
     "SweepRng",
 ]
@@ -80,6 +81,21 @@ def lane_keys(seed_words: torch.Tensor, n: int) -> torch.Tensor:
     lane = torch.arange(n, dtype=torch.int64, device=seed_words.device)
     lane_mix = hash32((base + mul32(lane, _GOLDEN)[None, :]) & MASK32)
     return lane_mix ^ _row_mix(s0, s1)
+
+
+def position_uniforms(seed_words: torch.Tensor, n: int) -> torch.Tensor:
+    """``[C, n]`` f32 uniforms of the fused weight step's in-kernel
+    positions (``ops/resampling_pallas.py::_kernel``, :156-166, one chain
+    per program): ``hash((base + l * 0x9E3779B9) ^ row_mix) >> 8`` times
+    2**-24. Unlike :func:`lane_keys`, the row mix sits inside the hash and
+    there is no draw counter."""
+    s0 = seed_words[:, 0:1] & MASK32
+    s1 = seed_words[:, 1:2] & MASK32
+    base = hash32(s0 ^ hash32(s1 ^ hash32(torch.zeros_like(s1))))
+    lane = torch.arange(n, dtype=torch.int64, device=seed_words.device)
+    bits = hash32(((base + mul32(lane, _GOLDEN)[None, :]) & MASK32)
+                  ^ _row_mix(s0, s1))
+    return (bits >> 8).to(torch.float32) * _INV24
 
 
 def uniform_blocks(keys: torch.Tensor, ctr: torch.Tensor, nblk: int):

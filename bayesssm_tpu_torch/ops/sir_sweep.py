@@ -7,14 +7,14 @@ precomputed ``lgamma(y + 1)`` observation column) on the batched sweep of
 ``sir_bpf_sweep``. ``SirModel`` in ``csrc/models.cuh`` is the kernel's
 copy of the same callbacks.
 
-The Gillespie day runs an event loop per chain: each iteration draws
-``2 * unroll`` uniform blocks and applies ``unroll`` events to every lane,
-and a chain stops when none of its lanes is active or after
-``MAX_EVENTS`` events. In the batched plain version all chains iterate
-together, but a chain's counter, event count and state move only on the
-iterations in which that chain still runs — exactly what one un-batched
-JAX call (and one kernel block) does, so every chain's result depends on
-its own stream alone. The (S, I) packing of the JAX kernel only saved
+The Gillespie day is ``ops/gillespie.py::gillespie_day``, the event loop
+the per-day kernel's plain version runs too, here threading the sweep's
+own draw counter: each iteration draws ``2 * unroll`` uniform blocks and
+applies ``unroll`` events to every lane, and a chain stops when none of
+its lanes is active or after ``MAX_EVENTS`` events. A chain's counter,
+event count and state move only on the iterations in which that chain
+still runs — exactly what one un-batched JAX call (and one kernel block)
+does, so every chain's result depends on its own stream alone. The (S, I) packing of the JAX kernel only saved
 merge-network work; a gather moves both columns exactly, so it is gone.
 """
 
@@ -25,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from bayesssm_tpu_torch.ops.gillespie import MAX_EVENTS, gillespie_day
 from bayesssm_tpu_torch.ops.sweep_builder import (
     KernelModel,
     build_sweep_op,
@@ -34,8 +35,6 @@ from bayesssm_tpu_torch.ops.sweep_builder import (
 __all__ = ["MAX_EVENTS", "sir_sweep_parts", "sir_filter_sweep",
            "sir_bpf_sweep"]
 
-# Cap on events per chain per day (ops/gillespie_pallas.py:52).
-MAX_EVENTS = 100_000
 _NEG = -1e30
 
 
@@ -58,31 +57,8 @@ def sir_sweep_parts(n_total: int, init_infected: int, unroll: int = 8):
     def transition_fn(rng, cols, theta, t):
         s, i = cols
         lam, gam = theta
-        lam_n = lam * inv_nt
-        tloc = torch.zeros_like(s)
-        active = i > 0.0
-        c = s.shape[0]
-        steps = torch.zeros((c, 1), dtype=torch.int64, device=s.device)
-        ctr = rng.counter()
-        while True:
-            go = active.any(dim=1, keepdim=True) & (steps < MAX_EVENTS)
-            if not bool(go.any()):
-                break
-            u, _ = rng.raw_uniform_blocks(2 * unroll, ctr)
-            for e in range(unroll):
-                rate_inf = lam_n * s * i
-                rate_tot = rate_inf + gam * i
-                dt = -torch.log1p(-u[2 * e]) * (1.0 / rate_tot)
-                t_new = tloc + dt
-                fire = active & go & (t_new <= 1.0)
-                infect = u[2 * e + 1] * rate_tot < rate_inf
-                s = torch.where(fire & infect, s - 1.0, s)
-                i = torch.where(fire, torch.where(infect, i + 1.0, i - 1.0),
-                                i)
-                tloc = torch.where(fire, t_new, tloc)
-                active = fire & (i > 0.0)
-            ctr = ctr + 2 * unroll * go
-            steps = steps + unroll * go
+        s, i, ctr = gillespie_day(rng.keys, rng.counter(), s, i,
+                                  lam * inv_nt, gam, 1.0, unroll)
         rng.set_counter(ctr)
         return s, i
 
@@ -160,8 +136,8 @@ def sir_filter_sweep(
         )
     if algorithm != "BPF":
         raise NotImplementedError(
-            f"{algorithm} sweeps are not ported yet (ROADMAP Queue 1, APF, "
-            "RMPF, obs_gaps and multivariate y in K1)"
+            f"{algorithm} sweeps are not ported yet (ROADMAP Queue 1, APF "
+            "and RMPF through the engine, then in K1)"
         )
     op, obs_transform = _sir_op(
         int(n_total), int(init_infected), int(unroll), resample_fn,

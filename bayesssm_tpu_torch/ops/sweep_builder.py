@@ -47,6 +47,7 @@ __all__ = [
     "build_sweep_op",
     "build_sweep_pf_impl",
     "tree_sum",
+    "running_cdf",
     "cdf_ext",
     "chain_params",
 ]
@@ -68,8 +69,13 @@ class KernelModel(NamedTuple):
 
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
     """``[C, N] -> [C, 1]`` sum in halving order (``x[:h] + x[h:]``), the
-    kernel's block reduction; ``N`` is a power of two."""
+    kernels' block reduction. A lane count that is not a power of two is
+    padded with zeros up to one, as the kernels' idle threads are."""
     n = x.shape[-1]
+    if n & (n - 1):
+        pad = (1 << (n - 1).bit_length()) - n
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+        n += pad
     while n > 1:
         n //= 2
         x = x[..., :n] + x[..., n:]
@@ -91,11 +97,10 @@ def _shift(x: torch.Tensor, s: int) -> torch.Tensor:
     return torch.cat([torch.zeros_like(x[:, :s]), x[:, :-s]], dim=1)
 
 
-def cdf_ext(w: torch.Tensor, lane_f: torch.Tensor,
-            alive: torch.Tensor) -> torch.Tensor:
-    """Hillis-Steele inclusive scan, then a running max (same doubling
-    order as the JAX kernel, :244-254), pinned to the 1.5 sentinel from
-    the last alive lane on (:255-257)."""
+def running_cdf(w: torch.Tensor) -> torch.Tensor:
+    """Hillis-Steele inclusive scan, then a running max, in the doubling
+    order of the JAX kernels (``sweep_builder.py:244-254``,
+    ``resampling_pallas.py:111-129``)."""
     n = w.shape[-1]
     cdf = w
     s = 1
@@ -106,7 +111,14 @@ def cdf_ext(w: torch.Tensor, lane_f: torch.Tensor,
     while s < n:
         cdf = torch.maximum(cdf, _shift(cdf, s))
         s *= 2
-    return torch.where(lane_f >= alive - 1.0, _SENTINEL, cdf)
+    return cdf
+
+
+def cdf_ext(w: torch.Tensor, lane_f: torch.Tensor,
+            alive: torch.Tensor) -> torch.Tensor:
+    """:func:`running_cdf` pinned to the 1.5 sentinel from the last alive
+    lane on (``sweep_builder.py:255-257``)."""
+    return torch.where(lane_f >= alive - 1.0, _SENTINEL, running_cdf(w))
 
 
 class SweepOp:
@@ -279,8 +291,8 @@ def build_sweep_op(
 
     Same argument checks as the JAX sweep builder (``sweep_builder.py:580-597``).
     APF (``aux_log_weight_fn``), RMPF (``move_fn``) and irregular
-    ``obs_gaps`` are not ported yet (ROADMAP Queue 1, "APF, RMPF,
-    obs_gaps and multivariate y in K1").
+    ``obs_gaps`` are not ported yet (ROADMAP Queue 1, "APF and RMPF
+    through the engine, then in K1").
     """
     if resample_fn not in ("stratified", "systematic"):
         raise ValueError(
@@ -298,12 +310,12 @@ def build_sweep_op(
         if any(g != 1 for g in obs_gaps):
             raise NotImplementedError(
                 "irregular obs_gaps are not ported yet (ROADMAP Queue 1, "
-                "APF, RMPF, obs_gaps and multivariate y in K1)"
+                "APF and RMPF through the engine, then in K1)"
             )
     if aux_log_weight_fn is not None or move_fn is not None:
         raise NotImplementedError(
             "the APF and RMPF sweep days are not ported yet (ROADMAP "
-            "Queue 1, APF, RMPF, obs_gaps and multivariate y in K1)"
+            "Queue 1, APF and RMPF through the engine, then in K1)"
         )
     mode = ("always" if always_resample
             else "never" if never_resample else "adaptive")
@@ -341,12 +353,12 @@ def build_sweep_pf_impl(
         if algorithm != "BPF":
             raise NotImplementedError(
                 f"{algorithm} sweeps are not ported yet (ROADMAP Queue 1, "
-                "APF, RMPF, obs_gaps and multivariate y in K1)"
+                "APF and RMPF through the engine, then in K1)"
             )
         if obs_times is not None:
             raise NotImplementedError(
-                "obs_times are not ported yet (ROADMAP Queue 1, APF, RMPF, "
-                "obs_gaps and multivariate y in K1)"
+                "obs_times are not ported yet (ROADMAP Queue 1, APF and "
+                "RMPF through the engine, then in K1)"
             )
         if carry_weights:
             raise ValueError(

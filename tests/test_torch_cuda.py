@@ -97,3 +97,88 @@ def test_callbacks_without_a_kernel_raise_on_cuda(dev):
     words = _words(2, 3, dev)
     with pytest.raises(NotImplementedError, match="CUDA kernel"):
         op(words, torch.zeros(3), torch.zeros((2, 1), device=dev), 128)
+
+
+@pytest.mark.parametrize("method", ["stratified", "systematic",
+                                    "multinomial"])
+@pytest.mark.parametrize("always", [False, True])
+def test_fused_resample_kernel_bitwise(dev, method, always):
+    from bayesssm_tpu_torch.ops.resampling import _positions
+    from bayesssm_tpu_torch.ops.resampling_fused import (
+        fused_weight_resample,
+        fused_weight_resample_reference,
+        fused_weight_resample_seeded,
+    )
+
+    c, n, d = 64, 200, 2          # a lane count that is not a power of 2
+    gen = torch.Generator(device=dev).manual_seed(3)
+    alive = torch.randint(n // 2, n + 1, (c,), device=dev,
+                          generator=gen).to(torch.float32)
+    lane = torch.arange(n, dtype=torch.float32, device=dev)
+    live = lane[None, :] < alive[:, None]
+    scale = 0.1 + 3.0 * torch.rand((c, 1), device=dev, generator=gen)
+    lw = torch.where(live, scale * torch.randn((c, n), device=dev,
+                                               generator=gen), -1e30)
+    parts = torch.randn((c, n, d), device=dev, generator=gen)
+    uni = torch.where(live, 1.0 / alive[:, None], 0.0)
+    thr = alive / 2.0
+    words = _words(c, 4, dev)
+    pos = _positions(words, method, n, alive)
+    before = _build.launches["bssm_fused_resample"]
+    got = fused_weight_resample_seeded(lw, parts, words, alive, uni, thr,
+                                       method, always)
+    want = fused_weight_resample_reference(
+        lw, parts, uni, thr, key_words=words, num_alive=alive,
+        method=method, always_resample=always)
+    got_h = fused_weight_resample(lw, parts, pos, uni, thr, always)
+    want_h = fused_weight_resample_reference(lw, parts, uni, thr,
+                                             positions=pos,
+                                             always_resample=always)
+    assert _build.launches["bssm_fused_resample"] == before + 2
+    for a, b in zip((*got, *got_h), (*want, *want_h)):
+        assert torch.equal(a, b)
+
+
+def test_gillespie_kernel_bitwise(dev):
+    from bayesssm_tpu_torch.ops.gillespie import (
+        gillespie_step,
+        gillespie_step_reference,
+    )
+
+    c, n = 128, 96
+    gen = torch.Generator(device=dev).manual_seed(5)
+    s = torch.randint(250, 431, (c, n), device=dev, generator=gen)
+    i = torch.minimum(torch.randint(0, 120, (c, n), device=dev,
+                                    generator=gen), 500 - s)
+    i[::16] = 0
+    state = torch.stack([s, i], dim=-1).to(torch.float32)
+    lam = 0.3 + 0.5 * torch.rand(c, device=dev, generator=gen)
+    gam = 0.1 + 0.2 * torch.rand(c, device=dev, generator=gen)
+    words = _words(c, 6, dev)
+    before = _build.launches["bssm_gillespie"]
+    got = gillespie_step(words, state, lam, gam, 500)
+    assert _build.launches["bssm_gillespie"] == before + 1
+    assert torch.equal(got, gillespie_step_reference(words, state, lam, gam,
+                                                     500))
+
+
+def test_engine_auto_routes_through_both_kernels(dev):
+    from bayesssm_tpu_torch.filters import bootstrap_filter
+    from bayesssm_tpu_torch.models.sir import simulate_sir, sir_model
+
+    _, y = simulate_sir(seed=7, n_total=100, init_infected=10, t_max=5)
+    fns, _, _ = sir_model(100, 10, transition="gillespie_pallas")
+    words = _words(32, 8, dev)
+    _build.reset_launches()
+    res = bootstrap_filter(words, y, 128, *fns,
+                           theta=dict(lam=0.4, gamma=0.25),
+                           return_particles=False)
+    assert _build.launches["bssm_fused_resample"] == 5
+    assert _build.launches["bssm_gillespie"] == 5
+    # The kernels' plain versions on CPU give the same chains.
+    cpu = bootstrap_filter(words.cpu(), y, 128, *fns,
+                           theta=dict(lam=0.4, gamma=0.25),
+                           use_fused="interpret-inkernel",
+                           return_particles=False)
+    diff = (res.loglike.cpu() - cpu.loglike).abs()
+    assert float((diff <= 1e-3).float().mean()) >= 0.9

@@ -158,9 +158,35 @@ def test_model_priors_match():
     from bayesssm_tpu_torch.models.lgss import lgss_model
     from bayesssm_tpu_torch.models.sir import sir_model
 
-    for (lp, tr), (_, jlp, jtr) in ((sir_model(), j_sir()),
-                                    (lgss_model(), j_lgss())):
+    for (_, lp, tr), (_, jlp, jtr) in ((sir_model(), j_sir()),
+                                       (lgss_model(), j_lgss())):
         assert list(lp) == list(jlp) and tr == jtr
         for name in lp:
             for v in (-0.5, 0.0, 0.3, 1.7):
                 _close(lp[name](torch.tensor(v)), jlp[name](jnp.float32(v)))
+
+
+def test_model_factories_have_the_jax_signature():
+    """``sir_model``/``lgss_model`` take the JAX arguments and return
+    ``(model_fns, log_priors, param_transform)`` with the JAX model
+    functions' argument names."""
+    import inspect
+
+    from bayesssm_tpu.models.lgss import lgss_model as j_lgss
+    from bayesssm_tpu.models.sir import sir_model as j_sir
+    from bayesssm_tpu_torch.models.lgss import lgss_model
+    from bayesssm_tpu_torch.models.sir import sir_model
+
+    def params(fn):
+        return [(p.name, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+
+    for port, ref, kw in ((sir_model, j_sir,
+                           dict(transition="gillespie_pallas")),
+                          (lgss_model, j_lgss, {})):
+        assert params(port) == params(ref)
+        fns, lp, tr = port(**kw)
+        jfns, jlp, jtr = ref(**kw)
+        assert len(fns) == len(jfns) == 3
+        assert [params(f) for f in fns] == [params(f) for f in jfns]
+        assert list(lp) == list(jlp) and tr == jtr

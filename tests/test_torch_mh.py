@@ -46,7 +46,7 @@ N_TOTAL, I0, N = 100, 10, 128
 def setup():
     _, y = simulate_sir(seed=7, n_total=N_TOTAL, init_infected=I0, t_max=6)
     y = y.astype(np.float32)
-    log_priors, transform = sir_model()
+    _, log_priors, transform = sir_model()
     names = list(log_priors)
     pf = sir_sweep_pf_impl(N_TOTAL, I0)(
         y, N, names, None, None, "BPF", "SISAR", "stratified", False,
@@ -167,3 +167,30 @@ def test_stream_words_and_validation(setup):
         with pytest.raises(ValueError, match="m must|burn_in"):
             sample_chains(setup["pf"], state, m, burn, setup["prior_fns"],
                           setup["transforms"])
+
+
+def test_sample_chains_through_the_engine():
+    """``sample_chains`` over the generic engine (``_make_pf_loglike`` on
+    SIR ``gillespie_pallas``): finite, and the same samples for the same
+    seed."""
+    from bayesssm_tpu_torch.pmmh.tuning import _make_pf_loglike
+
+    _, y = simulate_sir(seed=7, n_total=N_TOTAL, init_infected=I0, t_max=5)
+    fns, log_priors, transform = sir_model(N_TOTAL, I0,
+                                           transition="gillespie_pallas")
+    names = list(log_priors)
+    pf = _make_pf_loglike(y, N, names, (*fns, None, None), None, "BPF",
+                          "SISAR", "stratified", False, max_particles=N)
+    prior_fns = [log_priors[q] for q in names]
+    transforms = resolve_transforms(transform, names)
+    factors = np.tile(np.diag([0.1, 0.1]).astype(np.float32), (4, 1, 1))
+
+    def run(seed):
+        state = init_chain_state([0.4, 0.25], factors, N, seed, "cpu")
+        return sample_chains(pf, state, 4, 1, prior_fns, transforms)
+
+    a, b, other = run(3), run(3), run(4)
+    assert a.samples.shape == (4, 3, 2) and np.isfinite(a.samples).all()
+    assert np.isfinite(a.state.ll.numpy()).all()
+    np.testing.assert_array_equal(a.samples, b.samples)
+    assert not np.array_equal(a.state.ll.numpy(), other.state.ll.numpy())

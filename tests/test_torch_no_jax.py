@@ -45,7 +45,7 @@ def test_port_runs_with_jax_blocked():
             init_chain_state, sample_chains)
         from bayesssm_tpu_torch.pmmh.transforms import resolve_transforms
         _, y = simulate_sir(seed=7, n_total=100, init_infected=10, t_max=4)
-        lp, tr = sir_model()
+        _, lp, tr = sir_model()
         names = list(lp)
         pf = sir_sweep_pf_impl(100, 10)(
             y, 128, names, None, None, "BPF", "SISAR", "stratified", False,
@@ -57,6 +57,15 @@ def test_port_runs_with_jax_blocked():
                             resolve_transforms(tr, names))
         assert out.samples.shape == (4, 2, 2)
         assert np.isfinite(out.samples).all()
+        from bayesssm_tpu_torch import bootstrap_filter
+        from bayesssm_tpu_torch.models.lgss import lgss_model
+        from bayesssm_tpu_torch.ops import threefry
+        fns, _, _ = lgss_model()
+        res = bootstrap_filter(
+            threefry.split(threefry.key(1)[None], 3)[0], np.zeros(4), 16,
+            *fns, theta=dict(a=0.9, sigma_x=0.6, sigma_y=0.4))
+        assert res.loglike.shape == (3,)
+        assert np.isfinite(res.loglike.numpy()).all()
         assert not any(m.split(".")[0] in ("jax", "jaxlib")
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
