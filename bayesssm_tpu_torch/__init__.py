@@ -5,7 +5,8 @@ whole-sweep bootstrap filter (``ops/sweep_builder.py``, CUDA kernel
 ``csrc/sweep.cu``), and the generic particle-filter engine
 (``filters/core.py``, ``bootstrap_filter``) with its per-day kernels, the
 fused weight step (``csrc/resample.cu``) and the Gillespie day-step
-(``csrc/gillespie.cu``); both feed the PMMH sampling phase
+(``csrc/gillespie.cu``); either one serves ``pmmh()``, the two-phase PMMH
+driver with pilot tuning, ESS/R-hat diagnostics and ``PMMHOutput``
 (``pmmh/driver.py``). The kernels are built by ``nvcc`` at first use, and
 every kernel has a plain PyTorch version beside it, which CPU tensors
 take. The JAX package ``bayesssm_tpu`` stays the reference; this package
@@ -29,7 +30,15 @@ _EXPORTS = {
     "simulate_sir": "bayesssm_tpu_torch.models.sir",
     "lgss_model": "bayesssm_tpu_torch.models.lgss",
     "simulate_lgss": "bayesssm_tpu_torch.models.lgss",
+    "pmmh": "bayesssm_tpu_torch.pmmh.driver",
+    "default_tune_control": "bayesssm_tpu_torch.pmmh.tuning",
+    "TuneControl": "bayesssm_tpu_torch.pmmh.tuning",
+    "ess": "bayesssm_tpu_torch.diagnostics.ess",
+    "rhat": "bayesssm_tpu_torch.diagnostics.rhat",
+    "PMMHOutput": "bayesssm_tpu_torch.output",
+    "SSM": "bayesssm_tpu_torch.ssm",
     "ChainState": "bayesssm_tpu_torch.pmmh.driver",
+    "chain_state_from_pilot": "bayesssm_tpu_torch.pmmh.driver",
     "chain_state_from_numpy": "bayesssm_tpu_torch.pmmh.driver",
     "init_chain_state": "bayesssm_tpu_torch.pmmh.driver",
     "mh_step": "bayesssm_tpu_torch.pmmh.driver",

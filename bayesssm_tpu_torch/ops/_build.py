@@ -35,8 +35,8 @@ import time
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "launches", "reset_launches", "load_library",
-           "build_info", "launch_sweep", "launch_select",
+__all__ = ["NVCC_FLAGS", "launches", "reset_launches", "library_loaded",
+           "load_library", "build_info", "launch_sweep", "launch_select",
            "launch_fused_resample", "launch_gillespie"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -121,6 +121,11 @@ def _compile(sources, out: pathlib.Path) -> str:
         for obj, _ in procs:
             obj.unlink(missing_ok=True)
     return log
+
+
+def library_loaded() -> bool:
+    """Whether this process has loaded the kernel library already."""
+    return _lib is not None
 
 
 def load_library():

@@ -126,9 +126,15 @@ def split(keys: torch.Tensor, shape=2) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
-def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)`` for every key."""
-    b0, b1 = threefry2x32(keys[..., 0], keys[..., 1], 0, int(data) & MASK32)
+def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for every key. ``data`` is an int
+    or an integer tensor that broadcasts against the keys' leading axes:
+    ``fold_in(root [2], arange(C))`` gives the ``[C, 2]`` chain keys."""
+    if isinstance(data, torch.Tensor):
+        data = data.to(device=keys.device, dtype=torch.int64) & MASK32
+    else:
+        data = int(data) & MASK32
+    b0, b1 = threefry2x32(keys[..., 0], keys[..., 1], 0, data)
     return torch.stack([b0, b1], dim=-1)
 
 

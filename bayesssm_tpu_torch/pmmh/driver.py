@@ -1,17 +1,39 @@
-"""PMMH sampling phase (port of the sampling half of
+"""Particle marginal Metropolis-Hastings driver (port of
 ``bayesssm_tpu/pmmh/driver.py``).
 
 Chains are the leading axis of every tensor: ``theta [C, P]``, proposal
 factors ``[C, P, P]``, particle counts ``[C]`` and two uint32 seed words
 per chain ``[C, 2]`` (int64 tensors holding uint32 values). One MH step is
-one batched filter sweep over all chains. Pilot tuning
-(``pmmh/tuning.py``) and the public ``pmmh()`` are not ported yet; the
-phase-1 results the JAX PMMH driver holds (``driver.py:436-474``) enter
-through :func:`chain_state_from_numpy`.
+one batched filter call over all chains. :func:`pmmh` runs the two phases
+of the JAX driver with one host sync between them:
 
-Per-step randomness is a device-side lowbias32 stream (``ops/rng.py``),
+  phase 1 (tuning)   — every chain's pilot RWM chain and pilot variance
+                       run, as one batched pilot (``pmmh/tuning.py``);
+  host sync          — the pilot means, covariances and particle counts
+                       come to the host; the delta-method proposal factors
+                       (:func:`chain_state_from_pilot`) and the lane bound
+                       ``_particle_lane_bound(max target_n)`` are computed;
+  phase 2 (sampling) — :func:`sample_chains`, in chunks of at most 256 MH
+                       steps whose samples go to the host as each chunk
+                       finishes.
+
+**The RNG contract of** :func:`pmmh`. The root key is
+``threefry.key(seed)`` (``jax.random.key(seed)``'s words), or a ``[2]``
+key-word array given as ``seed``. Chain ``c``'s key is
+``fold_in(root, c)``. Phase 1 threads the JAX key schedule exactly
+(``pmmh/tuning.py``), so each chain's pilot agrees with an un-vmapped JAX
+``run_pilot_chain`` on the same key. Phase 2 splits the chain key once,
+``key, k0 = split(key)``: the initial filter evaluation at the pilot mean
+takes ``k0``, as the JAX driver's ``_init_eval`` does, and ``key``'s words
+become the chain words of the MH stream below. Each filter is called with
+the words of its key: the engine takes them as threefry keys, the sweep
+as its two seed words. So phase 1 and the first log-likelihood agree with
+the JAX driver per key, and the MH steps agree in distribution.
+
+The MH steps draw from a device-side lowbias32 stream (``ops/rng.py``),
 never a host loop over chains. For chain words ``(w0, w1)``, MH step ``s``
-(``s = 0`` is the initial filter evaluation) and word index ``j``:
+(``s = 0`` is the initial filter evaluation of :func:`sample_chains`
+when its state carries no log-likelihood) and word index ``j``:
 
     k_s     = hash(w0 ^ hash(w1 + s * 0x85EBCA6B))
     word_j  = hash(k_s ^ hash((j + 1) * 0x9E3779B9))
@@ -21,30 +43,50 @@ Words 0 and 1 seed the step's filter sweep; words ``2 + 2q`` and
 uniforms ``(word >> 8) * 2**-24``; word ``2 + 2P`` gives the accept
 uniform. Chain words derive from a root seed's two words ``(r0, r1)`` and
 the chain id ``i`` as ``w0 = hash(r0 ^ hash(r1 + i * 0x9E3779B9))``,
-``w1 = hash(w0 ^ ((i + 1) * 0x85EBCA6B))``. The JAX PMMH driver's threefry
-keys give other numbers, so the two samplers agree in distribution; the
-tests hand both the same normals, uniforms and filter words.
+``w1 = hash(w0 ^ ((i + 1) * 0x85EBCA6B))`` (:func:`init_chain_state`).
+The JAX PMMH driver's threefry keys give other numbers, so the two
+samplers agree in distribution; the tests hand both the same normals,
+uniforms and filter words. A step's words depend only on the chain words
+and the step's index, so how the steps are cut into chunks changes no
+sample.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
+from typing import Optional
 
 import numpy as np
 import torch
 
+from bayesssm_tpu_torch.diagnostics.ess import ess_matrix
+from bayesssm_tpu_torch.diagnostics.rhat import rhat_matrix
+from bayesssm_tpu_torch.ops import threefry
 from bayesssm_tpu_torch.ops.rng import MASK32, box_muller, hash32, mul32
+from bayesssm_tpu_torch.output import PMMHOutput
 from bayesssm_tpu_torch.pmmh.priors import sum_log_priors
 from bayesssm_tpu_torch.pmmh.transforms import (
     back_transform_params,
     log_jacobian,
+    resolve_transforms,
     transform_params,
 )
+from bayesssm_tpu_torch.pmmh.tuning import (
+    TuneControl,
+    _make_pf_loglike,
+    default_tune_control,
+    run_pilot_chain,
+)
+from bayesssm_tpu_torch.utils.signatures import check_params_match
+from bayesssm_tpu_torch.utils.timing import PhaseTimer
 
 __all__ = [
+    "pmmh",
     "ChainState",
     "chain_state_from_numpy",
+    "chain_state_from_pilot",
     "init_chain_state",
     "chain_words",
     "step_words",
@@ -56,6 +98,62 @@ __all__ = [
 _GOLDEN = 0x9E3779B9
 _STEP_MUL = 0x85EBCA6B
 _INV24 = 1.0 / (1 << 24)
+# Longest run of MH steps whose samples stay on the device before they go
+# to the host.
+SAMPLE_CHUNK = 256
+
+_ALGO_BY_NAME = {
+    "bootstrap_filter": "BPF",
+    "auxiliary_filter": "APF",
+    "resample_move_filter": "RMPF",
+    "BPF": "BPF",
+    "APF": "APF",
+    "RMPF": "RMPF",
+}
+
+
+def _resolve_algorithm(pf_wrapper) -> str:
+    """Accept a filter callable, its name, or an algorithm code."""
+    if pf_wrapper is None:
+        return "BPF"
+    name = pf_wrapper if isinstance(pf_wrapper, str) else getattr(
+        pf_wrapper, "__name__", str(pf_wrapper)
+    )
+    if name not in _ALGO_BY_NAME:
+        raise ValueError(
+            "pf_wrapper must be bootstrap_filter, auxiliary_filter, "
+            "resample_move_filter (or 'BPF'/'APF'/'RMPF')"
+        )
+    return _ALGO_BY_NAME[name]
+
+
+def _stack_init_params(pilot_init_params, num_chains, param_names):
+    """Per-chain initial parameters as ``[chains, P]`` float32: one entry
+    per chain, all with the same names; a single dict is broadcast."""
+    if isinstance(pilot_init_params, dict):
+        pilot_init_params = [pilot_init_params] * num_chains
+    if len(pilot_init_params) != num_chains:
+        raise ValueError(
+            "pilot_init_params must have one entry per chain "
+            f"(got {len(pilot_init_params)}, num_chains={num_chains})"
+        )
+    names0 = set(pilot_init_params[0])
+    for entry in pilot_init_params[1:]:
+        if set(entry) != names0:
+            raise ValueError(
+                "pilot_init_params entries must share the same parameter names"
+            )
+    if len(names0) == 0:
+        raise ValueError("pilot_init_params must contain at least one parameter.")
+    missing = [p for p in param_names if p not in names0]
+    if missing:
+        raise ValueError(
+            "Parameters in functions do not match the names in pilot_init_params"
+        )
+    return np.array(
+        [[float(entry[p]) for p in param_names] for entry in pilot_init_params],
+        dtype=np.float32,
+    )
 
 
 def _proposal_factor(cov: np.ndarray) -> np.ndarray:
@@ -114,6 +212,40 @@ def chain_state_from_numpy(theta, prop_factors, target_n, seed_words,
         n=torch.as_tensor(n, device=device),
         words=torch.as_tensor(words, device=device),
     )
+
+
+def _delta_method_factors(theta_mean, theta_cov, transforms) -> np.ndarray:
+    """``[C, P, P]`` proposal factors on the transformed scale: the
+    untransformed pilot covariance through the delta method, ``J cov J^T``
+    with ``J = diag(dz/dtheta)`` at the pilot mean (Q6), factored by
+    :func:`_proposal_factor`."""
+    theta_mean = np.asarray(theta_mean, np.float64)
+    theta_cov = np.asarray(theta_cov, np.float64)
+    c, p = theta_mean.shape
+    factors = np.zeros((c, p, p), dtype=np.float32)
+    for k in range(c):
+        scale = np.ones(p)
+        for j, t in enumerate(transforms):
+            if t == "log":
+                scale[j] = 1.0 / theta_mean[k, j]
+            elif t == "logit":
+                scale[j] = 1.0 / (theta_mean[k, j] * (1.0 - theta_mean[k, j]))
+        cov_z = (scale[:, None] * theta_cov[k]) * scale[None, :]
+        factors[k] = _proposal_factor(cov_z)
+    return factors
+
+
+def chain_state_from_pilot(theta_mean, theta_cov, target_n, transforms,
+                           key_words, device) -> ChainState:
+    """The phase-2 sampler state from pilot outputs (the port's or the JAX
+    ``run_pilot_chain``'s, as arrays): ``theta_mean [C, P]`` (the chains'
+    starting values), ``theta_cov [C, P, P]`` (untransformed), ``target_n
+    [C]``, the resolved ``transforms`` and the chains' MH stream words
+    ``key_words [C, 2]``. The proposal factors are the delta-method
+    factors of the JAX driver (``driver.py:446-458``)."""
+    factors = _delta_method_factors(theta_mean, theta_cov, transforms)
+    return chain_state_from_numpy(np.asarray(theta_mean, np.float32),
+                                  factors, target_n, key_words, device)
 
 
 def chain_words(seed: int, num_chains: int, device) -> torch.Tensor:
@@ -201,6 +333,7 @@ class SampleResult:
     acceptance_rate: np.ndarray    # [C], over the m - 1 MH steps
     state: ChainState
     latent: np.ndarray | None      # [C, m - burn_in, T+1(, d)] if requested
+    accepted: np.ndarray           # [C] int64 accepted MH steps
 
 
 def sample_chains(pf, state: ChainState, m: int, burn_in: int, prior_fns,
@@ -255,10 +388,320 @@ def sample_chains(pf, state: ChainState, m: int, burn_in: int, prior_fns,
 
     new_state = dataclasses.replace(state, theta=theta, ll=ll, se=se,
                                     step=state.step + m - 1)
+    accepted = accepts.cpu().numpy()
     return SampleResult(
         samples=samples.cpu().numpy(),
-        acceptance_rate=accepts.cpu().numpy() / max(m - 1, 1),
+        acceptance_rate=accepted / max(m - 1, 1),
         state=new_state,
         latent=(torch.stack(latent, dim=1).cpu().numpy()
                 if latent is not None else None),
+        accepted=accepted,
     )
+
+
+def _root_key(seed):
+    """``(root key words [2], the seed to report)`` from an int seed, or
+    from ``[2]`` key words given in place of a JAX key."""
+    if seed is None:
+        seed = int(np.random.SeedSequence().generate_state(1)[0])
+    if isinstance(seed, (int, np.integer)):
+        return threefry.key(int(seed)), int(seed)
+    root = threefry.as_key_words(seed)
+    if root.shape != (2,):
+        raise ValueError(
+            "seed must be an int or the [2] words of one key (got shape "
+            f"{tuple(root.shape)})")
+    return root, None
+
+
+def _sample_in_chunks(pf, state, m, burn_in, prior_fns, transforms,
+                      jacobian_convention, return_latent_state_est,
+                      chunk_size, verbose):
+    """The post-burn-in samples ``[C, m - burn_in, P]`` (and latent states)
+    of ``m`` samples per chain from ``state``, whose log-likelihood is set:
+    sample 0 is its theta, samples ``1 .. m-1`` come from
+    :func:`sample_chains` called again on the returned state, chunk by
+    chunk. Returns ``(samples, latent or None, accepted [C])``.
+
+    ``chunk_size`` ``None`` runs the burn-in in one chunk and the rest in
+    chunks of at most ``SAMPLE_CHUNK`` steps; otherwise every chunk is
+    ``chunk_size`` steps, and ``verbose`` prints the JAX driver's progress
+    line after each.
+    """
+    samples, latents = [], []
+    if burn_in == 0:
+        samples.append(state.theta.cpu().numpy()[:, None])
+        if return_latent_state_est:
+            latents.append(state.se.cpu().numpy()[:, None])
+    accepted = np.zeros(state.theta.shape[0], dtype=np.int64)
+    done = 1                      # samples so far: the initial one
+    while done < m:
+        if chunk_size is not None:
+            length = min(chunk_size, m - done)
+        elif done < burn_in:
+            length = burn_in - done + 1
+        else:
+            length = min(SAMPLE_CHUNK, m - done)
+        # Local sample j of the chunk is global sample done - 1 + j; j = 0
+        # is the state it starts from, recorded already.
+        first_keep = max(1, burn_in - done + 1)
+        local_burn = min(first_keep, length)
+        res = sample_chains(pf, state, length + 1, local_burn, prior_fns,
+                            transforms, jacobian_convention,
+                            return_latent_state_est)
+        drop = first_keep - local_burn
+        samples.append(res.samples[:, drop:])
+        if return_latent_state_est:
+            latents.append(res.latent[:, drop:])
+        state = res.state
+        accepted += res.accepted
+        done += length
+        if verbose:
+            chunk_acc = float(res.accepted.mean()) / length
+            cum_acc = float(accepted.mean()) / max(done - 1, 1)
+            print(
+                f"Sampling: {done}/{m} steps — acceptance "
+                f"chunk {chunk_acc:.3f}, cumulative {cum_acc:.3f}"
+            )
+    latent = (np.concatenate(latents, axis=1)
+              if return_latent_state_est else None)
+    return np.concatenate(samples, axis=1), latent, accepted
+
+
+def pmmh(
+    pf_wrapper,
+    y,
+    m: int,
+    init_fn,
+    transition_fn,
+    log_likelihood_fn,
+    log_priors: dict,
+    pilot_init_params,
+    burn_in: int,
+    num_chains: int = 4,
+    aux_log_likelihood_fn=None,
+    move_fn=None,
+    obs_times=None,
+    resample_algorithm: str = "SISAR",
+    resample_fn: str = "stratified",
+    param_transform: Optional[dict] = None,
+    tune_control: Optional[TuneControl] = None,
+    verbose: bool = False,
+    return_latent_state_est: bool = False,
+    seed=None,
+    jacobian_convention: str = "consistent",
+    carry_weights: bool = False,
+    mesh=None,
+    chain_axis: str = "chains",
+    particle_axis: str = "particles",
+    print_summary: bool = True,
+    checkpoint_every: Optional[int] = None,
+    checkpoint_path=None,
+    resume: bool = False,
+    pf_impl=None,
+    progress_every: Optional[int] = None,
+) -> PMMHOutput:
+    """Run PMMH with pilot tuning; returns a :class:`PMMHOutput`.
+
+    The JAX function's arguments, defaults, checks and messages. The
+    chains run on the current CUDA device when there is one, else on the
+    CPU, as the JAX driver runs on JAX's default backend. ``seed`` is an
+    int or the ``[2]`` words of a key; the module docstring states the
+    RNG contract.
+
+    ``pf_impl`` replaces ``_make_pf_loglike`` in both phases, e.g.
+    ``sir_sweep_pf_impl(500, 70)`` for the whole-sweep kernel; its filter
+    is trusted to match the requested algorithm, as in the JAX driver.
+
+    Sampling runs in chunks: with ``progress_every`` (``min(500, m)``
+    under ``verbose``) every chunk is that many steps, and ``verbose``
+    prints the JAX driver's progress line after each; otherwise the
+    burn-in runs in one chunk and the rest in chunks of at most 256 steps.
+    Chunking changes no sample. ``timings`` holds the seconds of
+    ``"tuning"``, ``"compile"`` (building and loading the CUDA kernels,
+    when this call did so; else 0) and ``"sampling"``.
+
+    Not ported yet: ``mesh`` (ROADMAP Queue 1 item 6, multi-GPU),
+    ``checkpoint_every``/``checkpoint_path``/``resume`` (item 5,
+    checkpointing) and the APF/RMPF filters (item 2); each raises
+    ``NotImplementedError``. ``chain_axis`` and ``particle_axis`` name
+    mesh axes and are read only with a mesh.
+    """
+    # ---------------- validation ----------------
+    if not isinstance(m, (int, np.integer)) or m < 1:
+        raise ValueError("m must be an integer >= 1")
+    if not isinstance(burn_in, (int, np.integer)) or not (0 <= burn_in <= m - 1):
+        raise ValueError("burn_in must be an integer in [0, m - 1]")
+    if not isinstance(num_chains, (int, np.integer)) or num_chains < 1:
+        raise ValueError("num_chains must be an integer >= 1")
+    if not isinstance(log_priors, dict) or len(log_priors) == 0:
+        raise ValueError("log_priors must be a non-empty dict of callables")
+    y_host = (y.detach().cpu().numpy() if isinstance(y, torch.Tensor)
+              else np.asarray(y))
+    if not np.issubdtype(y_host.dtype, np.number) or np.isnan(y_host).any():
+        raise ValueError("y must be numeric with no missing values")
+
+    algorithm = _resolve_algorithm(pf_wrapper)
+    if algorithm == "APF" and aux_log_likelihood_fn is None:
+        raise ValueError("APF requires aux_log_likelihood_fn")
+    if algorithm == "RMPF" and move_fn is None:
+        raise ValueError("RMPF requires a move_fn")
+
+    param_names = list(log_priors.keys())
+    prior_fns = [log_priors[p] for p in param_names]
+    init_names = (
+        pilot_init_params
+        if isinstance(pilot_init_params, dict)
+        else pilot_init_params[0]
+    )
+    check_params_match(
+        init_fn, transition_fn, log_likelihood_fn, init_names, log_priors
+    )
+    theta0 = _stack_init_params(pilot_init_params, num_chains, param_names)
+
+    transforms = resolve_transforms(param_transform, param_names)
+    tune_control = tune_control or default_tune_control()
+
+    # Initial parameters must lie inside the prior support.
+    for j, fn in enumerate(prior_fns):
+        lp = torch.as_tensor(fn(torch.as_tensor(theta0[:, j])))
+        if not bool(torch.isfinite(lp).all()):
+            raise ValueError(
+                "Initial parameter values are invalid: some lie outside "
+                "the prior support. Please provide valid starting values "
+                "via pilot_init_params."
+            )
+
+    if algorithm != "BPF":
+        raise NotImplementedError(
+            f"{algorithm} in pmmh() is not ported yet (ROADMAP Queue 1 "
+            "item 2, APF and RMPF through the engine, then in K1)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh is not ported yet (ROADMAP Queue 1 item 6, multi-GPU)")
+    if checkpoint_every is not None or checkpoint_path is not None or resume:
+        raise NotImplementedError(
+            "checkpoint_every, checkpoint_path and resume are not ported "
+            "yet (ROADMAP Queue 1 item 5, checkpointing)")
+    del chain_axis, particle_axis
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if torch.cuda.is_available() else torch.device("cpu"))
+    root_key, seed_out = _root_key(seed)
+    chain_keys = threefry.fold_in(root_key.to(dev),
+                                  torch.arange(num_chains, device=dev))
+    model_fns = (
+        init_fn, transition_fn, log_likelihood_fn,
+        aux_log_likelihood_fn, move_fn,
+    )
+    pf_factory = pf_impl or _make_pf_loglike
+    timer = PhaseTimer(verbose=verbose, device=dev)
+
+    compile_s = 0.0
+    if dev.type == "cuda":
+        from bayesssm_tpu_torch.ops import _build
+
+        if not _build.library_loaded():
+            with timer.phase("compile"):
+                _build.load_library()
+            compile_s = timer.timings["compile"]
+
+    # ---------------- phase 1: pilot tuning, batched over chains ---------
+    if verbose:
+        print(f"Running pilot chains for tuning ({num_chains} chains)...")
+    with timer.phase("tuning"):
+        tuned = run_pilot_chain(
+            chain_keys, y_host, param_names, model_fns, prior_fns, theta0,
+            transforms, tune_control, obs_times=obs_times,
+            algorithm=algorithm, jacobian_convention=jacobian_convention,
+            carry_weights=carry_weights, pf_impl=pf_factory,
+        )
+    # The one host sync between the phases.
+    theta_mean = tuned["pilot_theta_mean"].cpu().numpy().astype(np.float64)
+    theta_cov = tuned["pilot_theta_cov"].cpu().numpy().astype(np.float64)
+    target_n = tuned["target_n"].cpu().numpy().astype(np.int64)
+
+    if verbose:
+        for c in range(num_chains):
+            print(f"Chain {c + 1}: pilot posterior mean {theta_mean[c]}")
+            print(f"Chain {c + 1}: pilot covariance\n{theta_cov[c]}")
+        print(f"Using {target_n} particles for PMMH:")
+
+    # ---------------- phase 2: the main chains ----------------
+    max_particles = _particle_lane_bound(int(target_n.max()))
+    pf = pf_factory(
+        y_host, None, param_names, model_fns, obs_times, algorithm,
+        resample_algorithm, resample_fn, carry_weights,
+        max_particles=max_particles,
+    )
+    mh_keys, k0 = threefry.split(chain_keys).unbind(1)
+    state = chain_state_from_pilot(theta_mean, theta_cov, target_n,
+                                   transforms, mh_keys.cpu().numpy(), dev)
+    ll0, se0 = pf(k0, state.theta, state.n)
+    state = dataclasses.replace(
+        state, ll=ll0, se=se0 if return_latent_state_est else None)
+
+    if verbose:
+        print("Running Particle MCMC chains with tuned settings...")
+    if progress_every is None and verbose:
+        progress_every = min(500, m)
+    with timer.phase("sampling"):
+        post, state_chains, accept_total = _sample_in_chunks(
+            pf, state, m, burn_in, prior_fns, transforms,
+            jacobian_convention, return_latent_state_est, progress_every,
+            verbose,
+        )
+    accept_rates = accept_total / max(m - 1, 1)
+
+    # ---------------- post-processing ----------------
+    theta_chain_dict = {
+        p: post[:, :, j] for j, p in enumerate(param_names)
+    }
+    param_ess, param_rhat = {}, {}
+    ess_message_shown = False
+    for j, p in enumerate(param_names):
+        mat = post[:, :, j].T  # [iters, chains]
+        if num_chains > 1:
+            param_ess[p] = float(ess_matrix(mat))
+        else:
+            param_ess[p] = float("nan")
+            if not ess_message_shown:
+                print(
+                    "ESS cannot be computed with only one chain "
+                    "Run at least 2 chains."
+                )
+                ess_message_shown = True
+        param_rhat[p] = (float(rhat_matrix(mat)) if post.shape[1] >= 2
+                         else float("nan"))
+
+    result = PMMHOutput(
+        theta_chain=theta_chain_dict,
+        diagnostics={"ess": param_ess, "rhat": param_rhat},
+        latent_state_chain=state_chains,
+        acceptance_rate=accept_rates,
+        target_n=target_n,
+        seed=seed_out,
+        timings={"tuning": timer.timings["tuning"], "compile": compile_s,
+                 "sampling": timer.timings["sampling"]},
+    )
+
+    if print_summary:
+        print(result)
+
+    if any(
+        not np.isnan(v) and v < 400 for v in param_ess.values()
+    ):
+        warnings.warn(
+            "Some ESS values are below 400, indicating poor mixing. "
+            "Consider running the chains for more iterations."
+        )
+    if any(
+        not np.isnan(v) and v > 1.01 for v in param_rhat.values()
+    ):
+        warnings.warn(
+            "\nSome Rhat values are above 1.01, indicating that the chains "
+            "have not converged. \nConsider running the chains for more "
+            "iterations and/or increase burn_in."
+        )
+
+    return result

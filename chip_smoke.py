@@ -6,10 +6,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 CUDA kernels from ``bayesssm_tpu_torch/csrc`` with ``nvcc``, holds each one
 against its plain PyTorch version on the card, and drives the port's two
 paths at full width — stochastic-SIR PMMH, 4096 chains x 128 particles,
-T = 10 — through ``sample_chains``: the whole-sweep path
-(``sir_sweep_pf_impl``) and the generic engine's bootstrap filter with the
-per-day kernels (``_make_pf_loglike`` on ``sir_model(transition=
-"gillespie_pallas")``). Phases:
+T = 10 — through ``sample_chains`` and then through the public ``pmmh()``
+with pilot tuning: the whole-sweep path (``sir_sweep_pf_impl``) and the
+generic engine's bootstrap filter with the per-day kernels
+(``_make_pf_loglike`` on ``sir_model(transition="gillespie_pallas")``).
+Phases:
 
 1. device name, count, and ``nvidia-smi`` name and power limit;
 2. kernel build: seconds, registers and spills from ``-Xptxas -v``;
@@ -35,9 +36,19 @@ per-day kernels (``_make_pf_loglike`` on ``sir_model(transition=
    of the Kalman value;
 10. the engine path: one warm-up MH step, then 32 timed steps with exactly
     10 K4 and 10 K3 launches per step, finite theta, acceptance strictly
-    inside (0, 1); the plain engine on the card over 2 steps.
+    inside (0, 1); the plain engine on the card over 2 steps;
+11. the public ``pmmh()`` with pilot tuning, as the JAX package's
+    ``bench.py --config pmmh`` runs it: 4096 chains, SIR(500, 70),
+    T = 10, theta0 = (0.5, 0.2), m = 512, burn_in = 128, seed 1405,
+    ``default_tune_control(pilot_m=200, pilot_burn_in=50, pilot_reps=20)``;
+    once through ``pf_impl=sir_sweep_pf_impl(500, 70)`` (K1 and no K3 or
+    K4) and once through the engine (K3 and K4, no K1). Tuning and
+    sampling seconds, samples/s as C (m - 1) / sampling, target_n and the
+    lane bound, acceptance, ESS and R-hat; finite samples, acceptance
+    strictly inside (0, 1), target_n in [50, 1000].
 
 ``--profile`` adds a ``torch.profiler`` window over 8 steps of each path
+(and of each ``pmmh()`` path's phase 2, at its lane bound and counts)
 and prints the device busy share. Any failure raises (exit code not 0).
 Without a CUDA device it fails before printing any result. The last line
 is one JSON object ``{"ok": true, "device": {...}}``; the line before it is
@@ -72,6 +83,8 @@ GILLESPIE_REPLACES = "bayesssm_tpu/ops/gillespie_pallas.py:71"
 CHAINS, PARTICLES = 4096, 128
 AGREE_TOL = 1e-3       # |d loglike| per chain, kernel vs plain sweep
 AGREE_SHARE = 0.99     # share of chains that must agree within AGREE_TOL
+# pmmh() as the JAX package's `bench.py --config pmmh` runs it.
+PMMH_M, PMMH_BURN_IN = 512, 128
 
 
 def say(phase: str, **kv) -> None:
@@ -538,6 +551,119 @@ def phase_engine_path(dev):
     return counts, pf, warm.state, prior_fns, transforms
 
 
+def phase_pmmh(path, control):
+    """The public ``pmmh()`` with pilot tuning at full width on one path:
+    ``"sweep"`` (``pf_impl=sir_sweep_pf_impl(500, 70)``, K1) or
+    ``"engine"`` (the default filter on ``sir_model(transition=
+    "gillespie_pallas")``, K4 and K3). Returns the kernel launch counts of
+    the call and its output."""
+    import warnings
+
+    from bayesssm_tpu_torch import pmmh
+    from bayesssm_tpu_torch.models.sir import (
+        simulate_sir,
+        sir_model,
+        sir_sweep_pf_impl,
+    )
+    from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.pmmh.driver import _particle_lane_bound
+
+    chains, m, burn_in = CHAINS, PMMH_M, PMMH_BURN_IN
+    _, y = simulate_sir(seed=1405)
+    (init_fn, trans_fn, ll_fn), log_priors, transform = sir_model(
+        500, 70, transition="gillespie_pallas")
+    pf_impl = sir_sweep_pf_impl(500, 70) if path == "sweep" else None
+    _build.reset_launches()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # ESS/R-hat advice on short runs
+        out = pmmh("bootstrap_filter", y, m, init_fn, trans_fn, ll_fn,
+                   log_priors, {"lam": 0.5, "gamma": 0.2}, burn_in,
+                   num_chains=chains, param_transform=transform, seed=1405,
+                   tune_control=control, pf_impl=pf_impl,
+                   print_summary=False)
+    counts = dict(_build.launches)
+    t = out.timings
+    tn = out.target_n
+    acc = float(out.acceptance_rate.mean())
+    say("pmmh", path=path, chains=chains, m=m, burn_in=burn_in,
+        pilot_m=control.pilot_m, pilot_reps=control.pilot_reps,
+        cut="pilot_m 2000->200 and pilot_reps 100->20 (bench.py's)",
+        tuning_s=t["tuning"], compile_s=t["compile"],
+        sampling_s=t["sampling"],
+        samples_per_s=chains * (m - 1) / t["sampling"],
+        target_n_min=int(tn.min()), target_n_median=float(np.median(tn)),
+        target_n_max=int(tn.max()),
+        lane_bound=_particle_lane_bound(int(tn.max())), acceptance=acc,
+        k1_launches=counts["bssm_sweep_sir"],
+        k3_launches=counts["bssm_fused_resample"],
+        k4_launches=counts["bssm_gillespie"])
+    for q in out.param_names:
+        # A chain whose pilot never moved in its second half gets a zero
+        # proposal (zero pilot covariance, as in the JAX driver) and never
+        # moves: its zero variance makes ESS and R-hat NaN.
+        frozen = np.ptp(out.theta_chain[q], axis=1) == 0
+        say("pmmh", path=path, param=q, ess=out.diagnostics["ess"][q],
+            rhat=out.diagnostics["rhat"][q],
+            mean=float(out.theta_chain[q].mean()),
+            frozen_chains=int(frozen.sum()),
+            frozen_values=out.theta_chain[q][frozen, 0][:4].tolist(),
+            frozen_acceptance=out.acceptance_rate[frozen][:4].tolist())
+    samples = np.stack(list(out.theta_chain.values()))
+    if samples.shape != (2, chains, m - burn_in):
+        raise AssertionError(f"pmmh ({path}) samples have shape "
+                             f"{samples.shape}")
+    if not np.isfinite(samples).all() or not 0.0 < acc < 1.0:
+        raise AssertionError(f"pmmh ({path}): samples not finite, or the "
+                             "acceptance rate is degenerate")
+    if tn.min() < 50 or tn.max() > 1000:
+        raise AssertionError(f"pmmh ({path}): target_n outside [50, 1000]")
+    k1 = counts["bssm_sweep_sir"]
+    k34 = (counts["bssm_fused_resample"], counts["bssm_gillespie"])
+    if path == "sweep" and (k1 == 0 or any(k34)):
+        raise AssertionError(f"pmmh sweep path launched K1 {k1} times and "
+                             f"K3/K4 {k34} times")
+    if path == "engine" and (k1 != 0 or not all(k34)):
+        raise AssertionError(f"pmmh engine path launched K1 {k1} times and "
+                             f"K3/K4 {k34} times")
+    return counts, out
+
+
+def pmmh_phase2(dev, path, out):
+    """The filter and a sampler state as ``pmmh()``'s phase 2 holds them
+    after ``out``: the same lane bound and per-chain counts, the chains'
+    last samples, a diagonal proposal (for ``--profile``)."""
+    from bayesssm_tpu_torch.models.sir import (
+        simulate_sir,
+        sir_model,
+        sir_sweep_pf_impl,
+    )
+    from bayesssm_tpu_torch.pmmh.driver import (
+        _particle_lane_bound,
+        init_chain_state,
+        sample_chains,
+    )
+    from bayesssm_tpu_torch.pmmh.transforms import resolve_transforms
+    from bayesssm_tpu_torch.pmmh.tuning import _make_pf_loglike
+
+    _, y = simulate_sir(seed=1405)
+    fns, log_priors, transform = sir_model(500, 70,
+                                           transition="gillespie_pallas")
+    names = list(log_priors)
+    bound = _particle_lane_bound(int(out.target_n.max()))
+    factory = sir_sweep_pf_impl(500, 70) if path == "sweep" else (
+        _make_pf_loglike)
+    pf = factory(y, None, names, (*fns, None, None), None, "BPF", "SISAR",
+                 "stratified", False, max_particles=bound)
+    c = len(out.target_n)
+    last = np.stack([out.theta_chain[q][:, -1] for q in names], axis=1)
+    factors = np.tile(np.diag([0.1, 0.1]).astype(np.float32), (c, 1, 1))
+    state = init_chain_state(last, factors, out.target_n, 1405, dev)
+    prior_fns = [log_priors[q] for q in names]
+    transforms = resolve_transforms(transform, names)
+    warm = sample_chains(pf, state, 2, 1, prior_fns, transforms)
+    return pf, warm.state, prior_fns, transforms
+
+
 def profile_steps(what, pf, state, prior_fns, transforms, steps=8):
     """Device busy share of ``steps`` MH steps under ``torch.profiler``:
     the union of the CUDA kernels' intervals over the window's wall time."""
@@ -606,6 +732,20 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_steps("sweep", sweep_pf, sweep_state, prior_fns, transforms)
         profile_steps("engine", eng_pf, eng_state, prior_fns, transforms)
+
+    from bayesssm_tpu_torch import default_tune_control
+
+    control = default_tune_control(pilot_m=200, pilot_burn_in=50,
+                                   pilot_reps=20)
+    pmmh_counts = []
+    for path in ("sweep", "engine"):
+        run_counts, out = phase_pmmh(path, control)
+        pmmh_counts.append(run_counts)
+        if "--profile" in sys.argv[1:]:
+            profile_steps(f"pmmh-{path}", *pmmh_phase2(dev, path, out))
+    for name in counts:
+        counts[name] += sum(c[name] for c in pmmh_counts)
+    sweep_launches += sum(c["bssm_sweep_sir"] for c in pmmh_counts)
 
     # select_index has no launch of its own on either path: it runs inside
     # every sweep and every fused-resample launch counted here.

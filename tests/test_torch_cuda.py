@@ -182,3 +182,93 @@ def test_engine_auto_routes_through_both_kernels(dev):
                            return_particles=False)
     diff = (res.loglike.cpu() - cpu.loglike).abs()
     assert float((diff <= 1e-3).float().mean()) >= 0.9
+
+
+def test_sir_kernel_bitwise_at_1024_lanes(dev):
+    """K1 with the SIR functor at the widest lane bound ``pmmh()`` can
+    choose (a tuned count of up to 1000 rounds up to 1024 lanes), chains'
+    counts spread over 50..1000: bitwise equal to the plain sweep."""
+    _, y = simulate_sir(seed=1405)
+    op, obs = _sir_op(500, 70, 8, "stratified", False, False)
+    y2 = obs(torch.as_tensor(y, device=dev))
+    c = 64
+    gen = torch.Generator(device=dev).manual_seed(11)
+    theta = (torch.tensor([[0.5, 0.2]], device=dev)
+             * torch.exp(0.1 * torch.randn((c, 2), device=dev,
+                                           generator=gen))).contiguous()
+    n = torch.linspace(50, 1000, c, device=dev).round()
+    words = _words(c, 12, dev)
+    before = _build.launches["bssm_sweep_sir"]
+    ll, est = op(words, y2, theta, n, max_particles=1024)
+    assert _build.launches["bssm_sweep_sir"] == before + 1
+    ll_p, est_p = op.sweep_reference(words, y2, theta, n, max_particles=1024)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ll).all()
+    assert torch.equal(ll, ll_p) and torch.equal(est, est_p)
+
+
+def test_gillespie_kernel_bitwise_at_1024_lanes(dev):
+    from bayesssm_tpu_torch.ops.gillespie import (
+        gillespie_step,
+        gillespie_step_reference,
+    )
+
+    c, n = 32, 1024
+    gen = torch.Generator(device=dev).manual_seed(13)
+    s = torch.randint(250, 431, (c, n), device=dev, generator=gen)
+    i = torch.minimum(torch.randint(0, 120, (c, n), device=dev,
+                                    generator=gen), 500 - s)
+    i[::8] = 0
+    state = torch.stack([s, i], dim=-1).to(torch.float32)
+    lam = 0.3 + 0.5 * torch.rand(c, device=dev, generator=gen)
+    gam = 0.1 + 0.2 * torch.rand(c, device=dev, generator=gen)
+    words = _words(c, 14, dev)
+    before = _build.launches["bssm_gillespie"]
+    got = gillespie_step(words, state, lam, gam, 500)
+    assert _build.launches["bssm_gillespie"] == before + 1
+    assert torch.equal(got, gillespie_step_reference(words, state, lam, gam,
+                                                     500))
+
+
+def test_pmmh_tuning_on_the_card_matches_the_cpu(dev):
+    """A small ``pmmh()`` through the whole-sweep path on the card tunes
+    the particle counts the batched pilot gives on the CPU for the same
+    keys; the card's and the CPU's pilots agree, their means within 1e-4
+    (the kernel's transcendental functions may differ from the CPU's by
+    an ulp)."""
+    from bayesssm_tpu_torch.models.sir import sir_model, sir_sweep_pf_impl
+    from bayesssm_tpu_torch.ops import threefry
+    from bayesssm_tpu_torch.pmmh import default_tune_control, pmmh
+    from bayesssm_tpu_torch.pmmh.transforms import resolve_transforms
+    from bayesssm_tpu_torch.pmmh.tuning import run_pilot_chain
+
+    _, y = simulate_sir(seed=7, n_total=100, init_infected=10, t_max=6)
+    fns, log_priors, transform = sir_model(100, 10)
+    control = default_tune_control(pilot_m=12, pilot_reps=6)
+    names = list(log_priors)
+    c, seed = 4, 5
+    theta0 = np.tile(np.array([0.4, 0.25], np.float32), (c, 1))
+    pilots = {}
+    for where in (dev, torch.device("cpu")):
+        keys = threefry.fold_in(threefry.key(seed, where),
+                                torch.arange(c, device=where))
+        pilots[where.type] = run_pilot_chain(
+            keys, y, names, (*fns, None, None),
+            [log_priors[q] for q in names], theta0,
+            resolve_transforms(transform, names), control,
+            pf_impl=sir_sweep_pf_impl(100, 10))
+    gpu, cpu = pilots["cuda"], pilots["cpu"]
+    assert torch.equal(gpu["target_n"].cpu(), cpu["target_n"])
+    np.testing.assert_allclose(gpu["pilot_theta_mean"].cpu().numpy(),
+                               cpu["pilot_theta_mean"].numpy(), atol=1e-4)
+
+    _build.reset_launches()
+    out = pmmh("bootstrap_filter", y, 6, *fns, log_priors,
+               {"lam": 0.4, "gamma": 0.25}, 2, num_chains=c,
+               param_transform=transform, seed=seed, tune_control=control,
+               pf_impl=sir_sweep_pf_impl(100, 10), print_summary=False)
+    # The pilot's pilot_m filter calls and one pilot_run call; the initial
+    # evaluation and the m - 1 = 5 MH steps.
+    assert _build.launches["bssm_sweep_sir"] == (control.pilot_m + 1) + 6
+    np.testing.assert_array_equal(out.target_n, cpu["target_n"].numpy())
+    assert all(np.isfinite(v).all() for v in out.theta_chain.values())

@@ -60,12 +60,22 @@ def test_port_runs_with_jax_blocked():
         from bayesssm_tpu_torch import bootstrap_filter
         from bayesssm_tpu_torch.models.lgss import lgss_model
         from bayesssm_tpu_torch.ops import threefry
-        fns, _, _ = lgss_model()
+        fns, lp2, tr2 = lgss_model()
         res = bootstrap_filter(
             threefry.split(threefry.key(1)[None], 3)[0], np.zeros(4), 16,
             *fns, theta=dict(a=0.9, sigma_x=0.6, sigma_y=0.4))
         assert res.loglike.shape == (3,)
         assert np.isfinite(res.loglike.numpy()).all()
+        import bayesssm_tpu_torch as bt
+        out = bt.pmmh("bootstrap_filter", np.zeros(4), 4, *fns, lp2,
+                      {"a": 0.5, "sigma_x": 0.5, "sigma_y": 0.5}, 1,
+                      num_chains=2, param_transform=tr2, seed=1,
+                      tune_control=bt.default_tune_control(
+                          pilot_m=4, pilot_reps=2, pilot_n=20),
+                      print_summary=False)
+        assert out.theta_chain["a"].shape == (2, 3)
+        assert np.isfinite(out.theta_chain["a"]).all()
+        assert list(out.timings) == ["tuning", "compile", "sampling"]
         assert not any(m.split(".")[0] in ("jax", "jaxlib")
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
