@@ -1,9 +1,10 @@
 """bayesssm_tpu_torch — the PyTorch + CUDA port of ``bayesssm_tpu``.
 
 Runs stochastic-SIR PMMH on an NVIDIA H100 along two paths: the batched
-whole-sweep bootstrap filter (``ops/sweep_builder.py``, CUDA kernel
+whole-sweep filter (``ops/sweep_builder.py``, CUDA kernel
 ``csrc/sweep.cu``), and the generic particle-filter engine
-(``filters/core.py``, ``bootstrap_filter``) with its per-day kernels, the
+(``filters/core.py``; ``bootstrap_filter``, ``auxiliary_filter``,
+``resample_move_filter``) with its per-day kernels, the
 fused weight step (``csrc/resample.cu``) and the Gillespie day-step
 (``csrc/gillespie.cu``); either one serves ``pmmh()``, the two-phase PMMH
 driver with pilot tuning, ESS/R-hat diagnostics and ``PMMHOutput``
@@ -17,6 +18,8 @@ __version__ = "0.1.0"
 
 _EXPORTS = {
     "bootstrap_filter": "bayesssm_tpu_torch.filters.bootstrap",
+    "auxiliary_filter": "bayesssm_tpu_torch.filters.auxiliary",
+    "resample_move_filter": "bayesssm_tpu_torch.filters.resample_move",
     "particle_filter_core": "bayesssm_tpu_torch.filters.core",
     "FilterConfig": "bayesssm_tpu_torch.filters.core",
     "FilterResult": "bayesssm_tpu_torch.filters.core",
@@ -27,6 +30,8 @@ _EXPORTS = {
     "sir_bpf_sweep": "bayesssm_tpu_torch.ops.sir_sweep",
     "sir_model": "bayesssm_tpu_torch.models.sir",
     "sir_sweep_pf_impl": "bayesssm_tpu_torch.models.sir",
+    "sir_aux_log_likelihood_fn": "bayesssm_tpu_torch.models.sir",
+    "sir_move_fn": "bayesssm_tpu_torch.models.sir",
     "simulate_sir": "bayesssm_tpu_torch.models.sir",
     "lgss_model": "bayesssm_tpu_torch.models.lgss",
     "simulate_lgss": "bayesssm_tpu_torch.models.lgss",

@@ -5,6 +5,11 @@
 // ops/lgss_sweep_pallas.py::_lgss_op). Each thread holds one particle's
 // state in registers. Expressions keep the plain version's evaluation
 // order; the library is built with --fmad=false so none is contracted.
+//
+// A functor declares D (state columns), P (parameters), DY (observation
+// columns), init, transition and log_weight. kHasAux marks an APF
+// lookahead aux_log_weight, kHasMove an RMPF move(rng, st, th, y_t); the
+// sweep compiles those stages in only for functors that have them.
 #pragma once
 
 #include "rng.cuh"
@@ -54,16 +59,28 @@ __device__ __forceinline__ void sir_day(Rng& rng, float& s, float& i,
   }
 }
 
+// Poisson log-pmf of y_t[0] at rate i, with lgamma(y + 1) = y_t[1] and
+// i = 0 exact.
+__device__ __forceinline__ float pois_lw(float i, const float* y_t) {
+  const float y = y_t[0];
+  const float safe_i = i > 0.0f ? i : 1.0f;
+  const float lw = y * logf(safe_i) - i - y_t[1];
+  return i > 0.0f ? lw : (y == 0.0f ? 0.0f : -1e30f);
+}
+
 // Stochastic SIR: state (S, I), parameters (lam, gamma), observation row
 // (y, lgamma(y + 1)).
 struct SirModel {
   static constexpr int D = 2;
   static constexpr int P = 2;
   static constexpr int DY = 2;
+  static constexpr bool kHasAux = true;
+  static constexpr bool kHasMove = true;
   float inv_nt;  // float32(1 / n_total)
   float s0;
   float i0;
   int unroll;
+  int move_step_max;
 
   __device__ void init(Rng&, float st[D], const float*) const {
     st[0] = s0;
@@ -79,11 +96,33 @@ struct SirModel {
   // Poisson log-pmf in I, with I = 0 exact.
   __device__ float log_weight(const float st[D], const float*,
                               const float* y_t) const {
+    return pois_lw(st[1], y_t);
+  }
+
+  // The APF lookahead is the observation density itself.
+  __device__ float aux_log_weight(const float st[D], const float* th,
+                                  const float* y_t) const {
+    return log_weight(st, th, y_t);
+  }
+
+  // RMPF move (ops/sir_sweep_pallas.py:161-179): two draws per lane;
+  // I' = I + floor(u0 * (2k + 1)) - k is kept when it lies in
+  // [0, n_total - S] and log(u1) is below the likelihood ratio.
+  __device__ void move(Rng& rng, float st[D], const float*,
+                       const float* y_t) const {
+    const float u0 = rng.uniform_at(rng.ctr);
+    const float u1 = rng.uniform_at(rng.ctr + 1);
+    rng.ctr += 2;
+    const float s = st[0];
     const float i = st[1];
-    const float y = y_t[0];
-    const float safe_i = i > 0.0f ? i : 1.0f;
-    const float lw = y * logf(safe_i) - i - y_t[1];
-    return i > 0.0f ? lw : (y == 0.0f ? 0.0f : -1e30f);
+    const float step =
+        floorf(u0 * (float)(2 * move_step_max + 1)) - (float)move_step_max;
+    const float i_prop = i + step;
+    const float n_total = s0 + i0;  // integers below 2^24: exact
+    const bool in_support = i_prop >= 0.0f && i_prop <= n_total - s;
+    const float log_ratio =
+        pois_lw(fmaxf(i_prop, 0.0f), y_t) - pois_lw(i, y_t);
+    if (in_support && logf(u1) < log_ratio) st[1] = i_prop;
   }
 };
 
@@ -92,6 +131,8 @@ struct LgssModel {
   static constexpr int D = 1;
   static constexpr int P = 3;
   static constexpr int DY = 1;
+  static constexpr bool kHasAux = false;
+  static constexpr bool kHasMove = false;
   float c;
   float p0;
 

@@ -1,5 +1,6 @@
 """The generic SMC engine behind the particle filters (port of
-``bayesssm_tpu/filters/core.py``), for the bootstrap filter.
+``bayesssm_tpu/filters/core.py``): the bootstrap (BPF), auxiliary (APF)
+and resample-move (RMPF) filters.
 
 One call filters ``C`` chains at once. The reference's per-observation loop
 is a Python loop over the ``T`` days on batched tensors, and every
@@ -21,7 +22,8 @@ a ``where`` per chain, as in the JAX engine.
   tensor, ``y`` (the day's observation: a 0-d tensor, or ``[d_y]``), ``t``
   (the observation time, an int) and, for ``init_fn``, ``num_particles``
   (the static lane count ``N``). They return ``[C, N]`` or ``[C, N, d]``
-  particles, or ``[C, N]`` log-weights.
+  particles, or ``[C, N]`` log-weights. A ``move_fn`` may instead be
+  written for one particle (``utils/signatures.py::adapt_move_fn``).
 * ``num_particles`` is an int, or a ``[C]`` tensor of per-chain counts
   with a static lane bound ``max_particles``: lanes at or above a chain's
   count carry ``-inf`` log-weight and are never selected (masked lanes).
@@ -43,16 +45,27 @@ a ``where`` per chain, as in the JAX engine.
 A fused step launches its CUDA kernel on CUDA tensors and runs its plain
 version on CPU tensors; no value selects the plain version on the card.
 
-Reproduced semantics: Q3 (cumulative ``loglike_history``), Q4 (ESS at
-t = 0 is ``num_particles``, and after a resample the recorded ESS is
-``num_particles``), Q5 (state estimates after a resample use the uniform
-weights), fresh weights each day unless ``carry_weights``, and degenerate
-weights (every log-weight below -1e8) giving ``-inf`` with zeroed weights
-and ESS from that day on.
+**APF.** After the gap loop the auxiliary log-weights select ancestors
+(a forced resample drawn from ``k_aux``), the particles take a second
+transition from ``k_trans2`` (quirk Q2), and the day's log-weights are
+``weight - aux_anc``, the ancestors' aux log-weights. Degenerate aux
+weights kill the chain as degenerate weights do. On the fused routes the
+aux log-weights, clamped at -1e30, ride through the weight-step kernel as
+an extra particle column, so the kernel carries them to the ancestors.
 
-Not ported yet: APF and RMPF through the engine, ``particle_axis``
-sharding and ``resample_fn="metropolis"``; each raises
-``NotImplementedError`` naming its ROADMAP item.
+**RMPF.** Every day resamples (SISR, whatever ``resample_algorithm``
+says), then ``move_fn`` rejuvenates the particles with ``k_move``.
+
+Reproduced semantics: Q2 (the APF's second transition), Q3 (cumulative
+``loglike_history``), Q4 (ESS at t = 0 is ``num_particles``, and after a
+resample the recorded ESS is ``num_particles``), Q5 (state estimates
+after a resample use the uniform weights), fresh weights each day unless
+``carry_weights``, and degenerate weights (every log-weight below -1e8)
+giving ``-inf`` with zeroed weights and ESS from that day on.
+
+Not ported yet: ``particle_axis`` sharding and
+``resample_fn="metropolis"``; each raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -81,14 +94,15 @@ from bayesssm_tpu_torch.ops.weights import (
     effective_sample_size,
     normalize_log_weights,
 )
-from bayesssm_tpu_torch.utils.signatures import adapt_fn
+from bayesssm_tpu_torch.utils.signatures import adapt_fn, adapt_move_fn
 
 __all__ = ["particle_filter_core", "FilterResult", "FilterConfig",
            "obs_times_to_gaps"]
 
 ALGORITHMS = ("BPF", "APF", "RMPF")
 RESAMPLE_ALGORITHMS = ("SIS", "SISR", "SISAR")
-_APF_RMPF_ITEM = "ROADMAP Queue 1, APF and RMPF through the engine"
+# Clamp for -inf log-weights entering the fused weight step.
+_FUSED_FLOOR = -1e30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,10 +273,6 @@ def particle_filter_core(
         raise ValueError("APF requires aux_weight_fn")
     if algorithm == "RMPF" and move_fn is None:
         raise ValueError("RMPF requires a move_fn")
-    if algorithm != "BPF":
-        raise NotImplementedError(
-            f"{algorithm} through the engine is not ported yet "
-            f"({_APF_RMPF_ITEM})")
     if particle_axis is not None:
         raise NotImplementedError(
             "particle_axis sharding is not ported yet (ROADMAP Queue 1, "
@@ -286,6 +296,10 @@ def particle_filter_core(
     init = adapt_fn(init_fn, "init_fn", required=("num_particles",))
     trans = adapt_fn(transition_fn, "transition_fn", required=("particles",))
     weight = adapt_fn(weight_fn, "weight_fn", required=("particles", "y"))
+    auxw = (adapt_fn(aux_weight_fn, "aux_weight_fn",
+                     required=("particles", "y"))
+            if aux_weight_fn is not None else None)
+    move = adapt_move_fn(move_fn) if move_fn is not None else None
 
     words = threefry.as_key_words(key)
     if words.ndim != 2:
@@ -348,7 +362,24 @@ def particle_filter_core(
         fused_enabled = True
     else:
         fused_enabled = bool(use_fused)
-    always_resample = resample_algorithm == "SISR"
+    always_resample = algorithm == "RMPF" or resample_algorithm == "SISR"
+    zero_thr = torch.zeros_like(n_f)
+
+    def fused_step(lw_safe, p3, key_words, thr_arg, always):
+        """K3 (or its plain version) on ``[C, N, d]`` particles."""
+        if inkernel_rng:
+            return fused_weight_resample_seeded(
+                lw_safe, p3, key_words, n_f, uniform_w, thr_arg,
+                method=resample_fn, always_resample=always)
+        pos = _positions(key_words, resample_fn, n, n_f)
+        return fused_weight_resample(lw_safe, p3, pos, uniform_w, thr_arg,
+                                     always_resample=always)
+
+    def log_weights(fn, who, particles, y_i, t_i):
+        lw = torch.as_tensor(fn(y=y_i, particles=particles, t=t_i, **theta))
+        if lw.shape[-1] != n:
+            raise ValueError(f"{who} must return num_particles")
+        return lw
 
     step_keys = threefry.split(key_run, (num_obs, 5))   # [C, T, 5, 2]
     particles = particles0
@@ -359,8 +390,7 @@ def particle_filter_core(
     for t in range(num_obs):
         y_i = ys[t, 0] if d_y == 1 else ys[t]
         t_i = int(ot[t])
-        k_gap = step_keys[:, t, 0]
-        k_res = step_keys[:, t, 3]
+        k_gap, k_aux, k_trans2, k_res, k_move = step_keys[:, t].unbind(1)
 
         # --- propagate through observation-time gaps ---
         if plain_gaps:
@@ -376,29 +406,57 @@ def particle_filter_core(
                           **theta),
                     "transition_fn")
 
-        lw = torch.as_tensor(weight(y=y_i, particles=particles, t=t_i,
-                                    **theta))
-        if lw.shape[-1] != n:
-            raise ValueError("weight_fn must return num_particles")
+        if algorithm == "APF":
+            aux_lw = torch.where(
+                alive, log_weights(auxw, "aux_weight_fn", particles, y_i,
+                                   t_i).to(dtype),
+                -math.inf)
+            # Degenerate aux weights kill the chain: without this the
+            # fused path's -1e30 clamp cancels in lw - aux_anc and a dead
+            # proposal would give a huge spurious log-likelihood.
+            dead = dead | (torch.amax(aux_lw, dim=1) < DEGENERATE_LOG_WEIGHT)
+            aux_base = aux_lw + lnw_prev if carry_weights else aux_lw
+            if fused_enabled:
+                p3 = particles if particles.ndim == 3 else particles[..., None]
+                aux_col = torch.clamp_min(aux_lw, _FUSED_FLOOR)[..., None]
+                p_ext = fused_step(torch.clamp_min(aux_base, _FUSED_FLOOR),
+                                   torch.cat([p3, aux_col], dim=-1), k_aux,
+                                   zero_thr, True)[0]
+                aux_anc = p_ext[..., -1]
+                particles = (p_ext[..., :-1] if particles.ndim == 3
+                             else p_ext[..., 0])
+            else:
+                aux_w, _, _ = normalize_log_weights(aux_base)
+                anc = resample_indices(k_aux, aux_w, method=resample_fn,
+                                       num_alive=n_f, validate=False)
+                particles = gather_particles(particles, anc)
+                aux_anc = torch.gather(aux_lw, 1, anc)
+            # Q2: a second transition after the auxiliary resample.
+            particles = canon(
+                trans(key=k_trans2, particles=particles, t=t_i, **theta),
+                "transition_fn")
+            lw = (log_weights(weight, "weight_fn", particles, y_i, t_i)
+                  - aux_anc)
+        else:
+            lw = log_weights(weight, "weight_fn", particles, y_i, t_i)
         lw = torch.where(alive, lw.to(dtype), -math.inf)
 
         # --- degenerate-weight detection ---
         dead = dead | (torch.amax(lw, dim=1) < DEGENERATE_LOG_WEIGHT)
-        combined = lw + lnw_prev if carry_weights else lw
+        if carry_weights:
+            # After an APF step the aux resample consumed the carried
+            # weights.
+            combined = lw + (log_uniform_w if algorithm == "APF"
+                             else lnw_prev)
+        else:
+            combined = lw
 
         if fused_enabled:
             p3 = particles if particles.ndim == 3 else particles[..., None]
-            safe = torch.clamp_min(combined, -1e30)
-            thr_arg = thr if thr is not None else torch.zeros_like(n_f)
-            if inkernel_rng:
-                p3, weights, ess, lse = fused_weight_resample_seeded(
-                    safe, p3, k_res, n_f, uniform_w, thr_arg,
-                    method=resample_fn, always_resample=always_resample)
-            else:
-                pos = _positions(k_res, resample_fn, n, n_f)
-                p3, weights, ess, lse = fused_weight_resample(
-                    safe, p3, pos, uniform_w, thr_arg,
-                    always_resample=always_resample)
+            thr_arg = thr if thr is not None else zero_thr
+            p3, weights, ess, lse = fused_step(
+                torch.clamp_min(combined, _FUSED_FLOOR), p3, k_res, thr_arg,
+                always_resample)
             particles = p3 if particles.ndim == 3 else p3[..., 0]
             incr = lse if carry_weights else lse - log_n
             loglike = torch.where(dead, -math.inf, loglike + incr)
@@ -411,7 +469,7 @@ def particle_filter_core(
             incr = (mx + lse) if carry_weights else (mx + lse - log_n)
             loglike = torch.where(dead, -math.inf, loglike + incr)
             ess = effective_sample_size(weights)
-            if resample_algorithm == "SIS":
+            if resample_algorithm == "SIS" and not always_resample:
                 ess_rec = ess
             else:
                 idx = resample_indices(k_res, weights, method=resample_fn,
@@ -425,6 +483,11 @@ def particle_filter_core(
                     particles = torch.where(do_p, resampled, particles)
                     weights = torch.where(do[:, None], uniform_w, weights)
                     ess_rec = torch.where(do, n_f, ess)
+
+        if algorithm == "RMPF":
+            particles = canon(
+                move(key=k_move, particles=particles, y=y_i, t=t_i, **theta),
+                "move_fn")
 
         # Dead chains: zero weights so the state estimate and ESS are 0.
         weights = torch.where(dead[:, None], 0.0, weights)

@@ -9,6 +9,8 @@ Two filters run it: the generic engine (``filters/core.py``) with the
 model functions of :func:`sir_model`, whose transition is the per-day
 Gillespie step (``ops/gillespie.py``, kernel K4), and the whole-sweep op
 (``ops/sir_sweep.py``, kernel K1) behind :func:`sir_sweep_pf_impl`.
+:func:`sir_aux_log_likelihood_fn` (APF) and :func:`sir_move_fn` (RMPF)
+are the engine's model functions of the two other filters.
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ from bayesssm_tpu_torch.models.distributions import (
     halfnorm_logpdf,
     pois_logpmf,
 )
+from bayesssm_tpu_torch.ops import threefry
 
-__all__ = ["sir_model", "sir_sweep_pf_impl", "simulate_sir"]
+__all__ = ["sir_model", "sir_sweep_pf_impl", "sir_aux_log_likelihood_fn",
+           "sir_move_fn", "simulate_sir"]
 
 TRANSITIONS = ("gillespie", "gillespie_pallas", "tauleap")
 
@@ -93,9 +97,12 @@ def sir_model(
 
 
 def sir_sweep_pf_impl(n_total: int = 500, init_infected: int = 70,
-                      unroll: int = 8):
+                      unroll: int = 8, move_step_max: int = 2):
     """PMMH ``pf_impl`` factory routing the SIR filter through the
-    whole-sweep op (BPF; SIS, SISR or SISAR; stratified or systematic).
+    whole-sweep op: BPF, APF (the Poisson weight as the lookahead) or RMPF
+    (the ``+-move_step_max`` move on I); SIS, SISR or SISAR (RMPF forces
+    SISR); stratified or systematic; ``obs_times`` as a gap loop in the
+    day. The JAX ``sir_builder_pf_impl``.
 
     Usage: ``pf = sir_sweep_pf_impl(500, 70)(y, 128, ["lam", "gamma"],
     None, None, "BPF", "SISAR", "stratified", False, max_particles=128)``
@@ -104,12 +111,49 @@ def sir_sweep_pf_impl(n_total: int = 500, init_infected: int = 70,
     from bayesssm_tpu_torch.ops.sir_sweep import sir_sweep_parts
     from bayesssm_tpu_torch.ops.sweep_builder import build_sweep_pf_impl
 
-    parts = sir_sweep_parts(n_total, init_infected, unroll=unroll)
+    parts = sir_sweep_parts(n_total, init_infected, unroll=unroll,
+                            move_step_max=move_step_max)
     return build_sweep_pf_impl(
         2, parts["init_fn"], parts["transition_fn"], parts["log_weight_fn"],
-        ("lam", "gamma"), num_obs_cols=2,
+        ("lam", "gamma"), aux_log_weight_fn=parts["aux_log_weight_fn"],
+        move_fn=parts["move_fn"], num_obs_cols=2,
         obs_transform=parts["obs_transform"], kernel=parts["kernel"],
     )
+
+
+def sir_aux_log_likelihood_fn(y, particles):
+    """APF lookahead weights for the SIR model: the observation density at
+    the propagated infectious count, the same Poisson term as the weight
+    function (the reference evaluates the aux weights after the gap loop,
+    quirk Q2)."""
+    return pois_logpmf(y, particles[..., 1])
+
+
+def sir_move_fn(n_total: int = 500, step_max: int = 2):
+    """RMPF rejuvenation move for SIR, an engine model function: propose
+    ``I' = I + U{-step_max..step_max}`` with S fixed and accept it with the
+    Poisson observation-likelihood ratio; proposals outside
+    ``[0, n_total - S]`` are rejected. Each chain draws ``randint`` and then
+    ``uniform`` over its particles from the two halves of ``split(key)``,
+    as the JAX function does."""
+
+    def move_fn(key, particles, y, lam, gamma):
+        del lam, gamma  # the observation conditional is theta-free
+        s = particles[..., 0]
+        i = particles[..., 1]
+        k_step, k_acc = threefry.split(key).unbind(-2)
+        n = i.shape[-1]
+        step = threefry.randint(k_step, (n,), -step_max,
+                                step_max + 1).to(i.dtype)
+        i_prop = i + step
+        in_support = (i_prop >= 0.0) & (i_prop <= float(n_total) - s)
+        log_ratio = (pois_logpmf(y, torch.clamp_min(i_prop, 0.0))
+                     - pois_logpmf(y, i))
+        u = threefry.uniform(k_acc, (n,))
+        accept = in_support & (torch.log(u) < log_ratio)
+        return torch.stack([s, torch.where(accept, i_prop, i)], dim=-1)
+
+    return move_fn
 
 
 def simulate_sir(seed=1405, n_total=500, init_infected=70, t_max=10,

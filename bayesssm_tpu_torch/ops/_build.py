@@ -53,10 +53,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # Model constants of each sweep entry, after the shared arguments.
 _SWEEP_CONSTS = {
-    "bssm_sweep_sir": (_F, _F, _F, _I),    # inv_nt, s0, i0, unroll
+    # inv_nt, s0, i0, unroll, move_step_max
+    "bssm_sweep_sir": (_F, _F, _F, _I, _I),
     "bssm_sweep_lgss": (_F, _F),           # c, p0
 }
-_SWEEP_SHARED = (_P,) * 7 + (_I,) * 5      # 7 pointers, C N T mode syst
+# seeds y theta alive thr ll est gaps times, C N T mode systematic algorithm
+_SWEEP_SHARED = (_P,) * 9 + (_I,) * 6
 
 _ENTRIES = {
     **{name: [*_SWEEP_SHARED, *consts, _P]
@@ -180,8 +182,11 @@ def _seeds_i32(words: torch.Tensor) -> torch.Tensor:
 
 
 def launch_sweep(kernel, words, ys, theta, alive, thr, n, *, d, mode,
-                 systematic):
-    """Launch ``kernel.entry`` for ``C`` chains of ``n`` lanes.
+                 systematic, algorithm=0, gap_table=None):
+    """Launch ``kernel.entry`` for ``C`` chains of ``n`` lanes; ``algorithm``
+    0/1/2 is BPF/APF/RMPF, ``gap_table`` an int32 ``[2, T]`` tensor on the
+    launch's device holding the per-observation transition counts and
+    their running sum (``None`` for one transition a day).
 
     Returns ``(loglike [C], state_est [C, T+1, d])``.
     """
@@ -199,13 +204,18 @@ def launch_sweep(kernel, words, ys, theta, alive, thr, n, *, d, mode,
     if n < 128 or n > 1024 or n & (n - 1):
         raise ValueError("the sweep kernel takes 128..1024 lanes, a power "
                          "of two")
+    gap_ptrs = (None, None)
+    if gap_table is not None:
+        _check({"gap_table": (gap_table, torch.int32)}, dev)
+        gap_ptrs = (gap_table[0].data_ptr(), gap_table[1].data_ptr())
     ll = torch.empty(c, dtype=torch.float32, device=dev)
     est = torch.empty((c, t + 1, d), dtype=torch.float32, device=dev)
     lib = load_library()
     rc = getattr(lib, kernel.entry)(
         seeds.data_ptr(), ys.data_ptr(), theta.data_ptr(), alive.data_ptr(),
-        thr.data_ptr(), ll.data_ptr(), est.data_ptr(), c, n, t, int(mode),
-        int(bool(systematic)), *kernel.consts, _stream(dev),
+        thr.data_ptr(), ll.data_ptr(), est.data_ptr(), *gap_ptrs, c, n, t,
+        int(mode), int(bool(systematic)), int(algorithm), *kernel.consts,
+        _stream(dev),
     )
     _raise_on(rc, kernel.entry)
     launches[kernel.entry] += 1

@@ -33,11 +33,59 @@ import torch
 from bayesssm_tpu_torch.ops import _build
 from bayesssm_tpu_torch.ops.rng import lane_keys, uniform_blocks
 
-__all__ = ["MAX_EVENTS", "gillespie_day", "gillespie_step",
+__all__ = ["MAX_EVENTS", "EventTally", "gillespie_day", "gillespie_step",
            "gillespie_step_reference"]
 
 # Cap on events per chain per call (ops/gillespie_pallas.py:52).
 MAX_EVENTS = 100_000
+
+
+class EventTally:
+    """The work of the plain event loop while the tally is open (``with
+    EventTally() as tally:``), for the kernels' bounds: a kernel runs the
+    same loop over the same draws, so it needs the same events.
+
+    * ``fired`` — events that happened, summed over lanes and calls (one
+      call is one transition of a day);
+    * ``block_max`` — over chain-calls, the sum of the largest event count
+      of any lane of the chain (a block iterates until its last lane is
+      done);
+    * ``slots`` — lane-event slots the blocks run: every lane of a chain
+      for each unrolled event while any of its lanes is active;
+    * ``chain_calls`` and ``lanes`` — chains x calls, and lanes per chain.
+    """
+
+    _open: list = []
+
+    def __init__(self):
+        self.fired = self.block_max = self.slots = self.chain_calls = 0
+        self.lanes = 0
+
+    def __enter__(self):
+        EventTally._open.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        EventTally._open.remove(self)
+
+    def add(self, events: torch.Tensor, steps: torch.Tensor) -> None:
+        c, n = events.shape
+        self.fired += int(events.sum())
+        self.block_max += int(events.amax(dim=1).sum())
+        self.slots += int(steps.sum()) * n
+        self.chain_calls += c
+        self.lanes = n
+
+    def summary(self) -> dict:
+        """Events per lane per transition (mean, and the per-block
+        maximum), and the tail: slots run per event needed."""
+        calls = max(self.chain_calls, 1)
+        return dict(
+            events=self.fired,
+            events_per_lane_transition=self.fired / (calls * self.lanes),
+            block_max_events_per_lane_transition=self.block_max / calls,
+            tail=self.slots / max(self.fired, 1),
+        )
 
 
 def gillespie_day(keys, ctr, s, i, lam_n, gam, t_end: float = 1.0,
@@ -53,6 +101,8 @@ def gillespie_day(keys, ctr, s, i, lam_n, gam, t_end: float = 1.0,
     tloc = torch.zeros_like(s)
     active = i > 0.0
     steps = torch.zeros_like(ctr)
+    events = (torch.zeros_like(s, dtype=torch.int64) if EventTally._open
+              else None)
     while True:
         go = active.any(dim=1, keepdim=True) & (steps < MAX_EVENTS)
         if not bool(go.any()):
@@ -69,8 +119,12 @@ def gillespie_day(keys, ctr, s, i, lam_n, gam, t_end: float = 1.0,
             i = torch.where(fire, torch.where(infect, i + 1.0, i - 1.0), i)
             tloc = torch.where(fire, t_new, tloc)
             active = fire & (i > 0.0)
+            if events is not None:
+                events += fire
         ctr = ctr + 2 * unroll * go
         steps = steps + unroll * go
+    for tally in EventTally._open:
+        tally.add(events, steps)
     return s, i, ctr
 
 

@@ -1,8 +1,9 @@
-"""Whole-sweep stochastic-SIR bootstrap filter — the port's main path.
+"""Whole-sweep stochastic-SIR filter (BPF, APF, RMPF) — the port's main path.
 
-Port of ``bayesssm_tpu/ops/sir_sweep_pallas.py`` (BPF): the SIR callbacks
-of ``sir_sweep_parts`` (exact Gillespie day, Poisson weight with a
-precomputed ``lgamma(y + 1)`` observation column) on the batched sweep of
+Port of ``bayesssm_tpu/ops/sir_sweep_pallas.py``: the SIR callbacks of
+``sir_sweep_parts`` (exact Gillespie day, Poisson weight with a
+precomputed ``lgamma(y + 1)`` observation column, the same Poisson weight
+as the APF lookahead, and the RMPF move on I) on the batched sweep of
 ``ops/sweep_builder.py``, and the entry points ``sir_filter_sweep`` /
 ``sir_bpf_sweep``. ``SirModel`` in ``csrc/models.cuh`` is the kernel's
 copy of the same callbacks.
@@ -38,17 +39,21 @@ __all__ = ["MAX_EVENTS", "sir_sweep_parts", "sir_filter_sweep",
 _NEG = -1e30
 
 
-def sir_sweep_parts(n_total: int, init_infected: int, unroll: int = 8):
+def sir_sweep_parts(n_total: int, init_infected: int, unroll: int = 8,
+                    move_step_max: int = 2):
     """The SIR model as sweep callbacks plus its CUDA functor.
 
     Returns a dict with ``init_fn``, ``transition_fn``, ``log_weight_fn``,
+    ``aux_log_weight_fn`` (the Poisson weight itself), ``move_fn``,
     ``obs_transform`` (appends ``lgamma(y + 1)`` as a second observation
     column), ``num_obs_cols`` and ``kernel`` (the ``KernelModel``).
     """
     inv_nt = float(np.float32(1.0 / float(n_total)))
+    nt = float(np.float32(n_total))
     s0 = float(n_total - init_infected)
     i0 = float(init_infected)
     unroll = int(unroll)
+    move_step_max = int(move_step_max)
 
     def init_fn(rng, theta):
         like = theta[0]
@@ -62,10 +67,8 @@ def sir_sweep_parts(n_total: int, init_infected: int, unroll: int = 8):
         rng.set_counter(ctr)
         return s, i
 
-    def log_weight_fn(cols, theta, y_t):
+    def pois_lw(i, y_v, lgy):
         """Poisson log-pmf in the infectious count, i = 0 exact."""
-        y_v, lgy = y_t
-        i = cols[1]
         safe_i = torch.where(i > 0.0, i, 1.0)
         lw = y_v * torch.log(safe_i) - i - lgy
         return torch.where(
@@ -73,6 +76,26 @@ def sir_sweep_parts(n_total: int, init_infected: int, unroll: int = 8):
             torch.where(y_v == 0.0, torch.zeros_like(lw),
                         torch.full_like(lw, _NEG)),
         )
+
+    def log_weight_fn(cols, theta, y_t):
+        y_v, lgy = y_t
+        return pois_lw(cols[1], y_v, lgy)
+
+    def move_fn(rng, cols, theta, y_t):
+        """RMPF rejuvenation: ``I' = I + floor(u0 * (2k + 1)) - k``,
+        accepted when ``log(u1)`` is below the Poisson likelihood ratio and
+        ``I'`` lies in ``[0, n_total - S]``."""
+        y_v, lgy = y_t
+        s, i = cols
+        u = rng.uniforms(2)
+        step = torch.floor(u[0] * float(2 * move_step_max + 1)) - float(
+            move_step_max)
+        i_prop = i + step
+        in_support = (i_prop >= 0.0) & (i_prop <= nt - s)
+        log_ratio = (pois_lw(torch.clamp_min(i_prop, 0.0), y_v, lgy)
+                     - pois_lw(i, y_v, lgy))
+        accept = in_support & (torch.log(u[1]) < log_ratio)
+        return s, torch.where(accept, i_prop, i)
 
     def obs_transform(ys):
         ys = torch.as_tensor(ys, dtype=torch.float32).reshape(-1)
@@ -82,20 +105,27 @@ def sir_sweep_parts(n_total: int, init_infected: int, unroll: int = 8):
         init_fn=init_fn,
         transition_fn=transition_fn,
         log_weight_fn=log_weight_fn,
+        aux_log_weight_fn=log_weight_fn,
+        move_fn=move_fn,
         obs_transform=obs_transform,
         num_obs_cols=2,
-        kernel=KernelModel("bssm_sweep_sir", (inv_nt, s0, i0, unroll)),
+        kernel=KernelModel("bssm_sweep_sir",
+                           (inv_nt, s0, i0, unroll, move_step_max)),
     )
 
 
 @functools.lru_cache(maxsize=None)
 def _sir_op(n_total, init_infected, unroll, method, always_resample,
-            never_resample):
-    parts = sir_sweep_parts(n_total, init_infected, unroll=unroll)
+            never_resample, algorithm="BPF", move_step_max=2, obs_gaps=None):
+    parts = sir_sweep_parts(n_total, init_infected, unroll=unroll,
+                            move_step_max=move_step_max)
     return build_sweep_op(
         2, parts["init_fn"], parts["transition_fn"], parts["log_weight_fn"],
-        2, resample_fn=method, always_resample=always_resample,
-        never_resample=never_resample, num_obs_cols=2,
+        2, aux_log_weight_fn=(parts["aux_log_weight_fn"]
+                              if algorithm == "APF" else None),
+        move_fn=parts["move_fn"] if algorithm == "RMPF" else None,
+        resample_fn=method, always_resample=always_resample,
+        never_resample=never_resample, num_obs_cols=2, obs_gaps=obs_gaps,
         kernel=parts["kernel"],
     ), parts["obs_transform"]
 
@@ -114,8 +144,10 @@ def sir_filter_sweep(
     resample_algorithm: str = "SISAR",
     threshold=None,
     unroll: int = 8,
+    move_step_max: int = 2,
 ):
-    """SIR particle-filter sweep for ``C`` chains.
+    """SIR particle-filter sweep for ``C`` chains: ``algorithm`` "BPF",
+    "APF" or "RMPF" (which forces SISR).
 
     ``seed_words [C, 2]`` fixes the batch and the device; ``lam``,
     ``gamma`` and ``num_particles`` are scalars or ``[C]`` tensors; ``y``
@@ -134,14 +166,11 @@ def sir_filter_sweep(
             "(stratified/systematic); multinomial resampling belongs to the "
             "per-day engine"
         )
-    if algorithm != "BPF":
-        raise NotImplementedError(
-            f"{algorithm} sweeps are not ported yet (ROADMAP Queue 1, APF "
-            "and RMPF through the engine, then in K1)"
-        )
     op, obs_transform = _sir_op(
         int(n_total), int(init_infected), int(unroll), resample_fn,
-        resample_algorithm == "SISR", resample_algorithm == "SIS",
+        algorithm == "RMPF" or resample_algorithm == "SISR",
+        resample_algorithm == "SIS" and algorithm != "RMPF", algorithm,
+        int(move_step_max),
     )
     words = torch.as_tensor(seed_words, dtype=torch.int64)
     y2 = obs_transform(torch.as_tensor(y, dtype=torch.float32,

@@ -1,14 +1,15 @@
 """Whole-sweep particle filter: the batched plain version and its CUDA kernel.
 
-Port of ``bayesssm_tpu/ops/sweep_builder.py`` (BPF with fresh weights,
-``carry_weights=False``). One call runs all T days of a bootstrap filter
-for a batch of chains laid out as ``[C, N]`` tensors: on-chip-style
-counter RNG (``ops/rng.py``), masked lanes (a chain's ``num_particles`` may
-be below the static lane bound ``max_particles``), max-shifted weights,
-ESS and the likelihood increment, stratified or systematic positions, the
-Hillis-Steele CDF with a running max, selection (``ops/merge_select.py``),
-adaptive (SISAR), forced (SISR) or no (SIS) resampling, state estimates,
-and the degenerate-weight ``-inf`` contract.
+Port of ``bayesssm_tpu/ops/sweep_builder.py`` (fresh weights,
+``carry_weights=False``). One call runs all T days of a bootstrap,
+auxiliary or resample-move filter for a batch of chains laid out as
+``[C, N]`` tensors: on-chip-style counter RNG (``ops/rng.py``), masked
+lanes (a chain's ``num_particles`` may be below the static lane bound
+``max_particles``), max-shifted weights, ESS and the likelihood increment,
+stratified or systematic positions, the Hillis-Steele CDF with a running
+max, selection (``ops/merge_select.py``), adaptive (SISAR), forced (SISR)
+or no (SIS) resampling, state estimates, and the degenerate-weight
+``-inf`` contract.
 
 Model callbacks (the JAX sweep builder's contract, batched): ``init_fn(rng,
 theta)`` and ``transition_fn(rng, cols, theta, t)`` return tuples of
@@ -16,6 +17,21 @@ theta)`` and ``transition_fn(rng, cols, theta, t)`` return tuples of
 unmasked ``[C, N]`` log-density; ``theta`` is a tuple of ``[C, N]``
 broadcasts of the per-chain parameters; ``rng`` is a
 :class:`~bayesssm_tpu_torch.ops.rng.SweepRng` with one counter per chain.
+Two optional callbacks select the other filters:
+
+* ``aux_log_weight_fn(cols, theta, y_t)`` — the APF day: the masked aux
+  log-weights select ancestors (a forced resample with its own position
+  draw), the ancestors' aux log-weights are recomputed from the selected
+  state (selection copies are exact, so this equals a gather), the state
+  takes a second transition (quirk Q2), and the day's log-weights are
+  ``log_weight - aux_anc``;
+* ``move_fn(rng, cols, theta, y_t)`` — the RMPF day: after the day's
+  selection the move rejuvenates the state; masked lanes keep theirs.
+
+``obs_gaps`` (one transition count per observation) turns the day's
+transition into a loop of ``gaps[t]`` transitions at the absolute times
+``times[t] - gaps[t] + s``, ``times = cumsum(gaps)``; the APF's second
+transition takes ``times[t] - 1``.
 
 Two implementations stand behind one op:
 
@@ -35,6 +51,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from bayesssm_tpu_torch.ops import _build
@@ -56,6 +73,7 @@ _NEG = -1e30
 _DEGENERATE = -1e8
 _SENTINEL = 1.5
 _MODE = {"adaptive": 0, "always": 1, "never": 2}
+_ALGORITHM = {"BPF": 0, "APF": 1, "RMPF": 2}
 
 
 class KernelModel(NamedTuple):
@@ -133,16 +151,24 @@ class SweepOp:
 
     def __init__(self, num_state_cols, init_fn, transition_fn,
                  log_weight_fn, num_params, method, mode, num_obs_cols,
-                 kernel):
+                 kernel, aux_log_weight_fn=None, move_fn=None, gaps=None):
         self.d = int(num_state_cols)
         self.p = int(num_params)
         self.d_y = int(num_obs_cols)
         self.init_fn = init_fn
         self.transition_fn = transition_fn
         self.log_weight_fn = log_weight_fn
+        self.aux_log_weight_fn = aux_log_weight_fn
+        self.move_fn = move_fn
         self.method = method
         self.mode = mode
         self.kernel = kernel
+        self.gaps = gaps
+        self.times = (None if gaps is None
+                      else tuple(int(v) for v in np.cumsum(gaps)))
+        self._gap_tables = {}  # device -> int32 [2, T] (gaps, times)
+        self.algorithm = ("APF" if aux_log_weight_fn is not None
+                          else "RMPF" if move_fn is not None else "BPF")
 
     def _prepare(self, seed_words, y, theta, num_particles, max_particles,
                  threshold):
@@ -169,6 +195,11 @@ class SweepOp:
             raise ValueError(
                 f"y must be [T, {self.d_y}] for num_obs_cols={self.d_y} "
                 f"(got shape {tuple(ys.shape)})"
+            )
+        if self.gaps is not None and len(self.gaps) != ys.shape[0]:
+            raise ValueError(
+                f"obs_gaps has {len(self.gaps)} entries but y has "
+                f"{ys.shape[0]} observations"
             )
         words = torch.as_tensor(seed_words, dtype=torch.int64, device=dev)
         if words.shape != (c, 2):
@@ -203,8 +234,20 @@ class SweepOp:
             ll, est = _build.launch_sweep(
                 self.kernel, *args, d=self.d, mode=_MODE[self.mode],
                 systematic=self.method == "systematic",
+                algorithm=_ALGORITHM[self.algorithm],
+                gap_table=self._gap_table(args[2].device),
             )
         return ll, self._shape_est(est)
+
+    def _gap_table(self, dev):
+        """The kernel's ``[2, T]`` int32 gaps and times on ``dev``, copied
+        there once."""
+        if self.gaps is None:
+            return None
+        if dev not in self._gap_tables:
+            self._gap_tables[dev] = torch.tensor(
+                [self.gaps, self.times], dtype=torch.int32, device=dev)
+        return self._gap_tables[dev]
 
     def sweep_reference(self, seed_words, y, theta, num_particles,
                         max_particles=None, threshold=None):
@@ -232,6 +275,13 @@ class SweepOp:
         alive_mask = lane_f < alive
         w_res = torch.where(alive_mask, 1.0 / alive, 0.0)
 
+        def masked(lw):
+            return torch.where(alive_mask, lw, _NEG)
+
+        def select(w, pos, cols):
+            res = select_cols_reference(cdf_ext(w, lane_f, alive), pos, cols)
+            return tuple(torch.where(alive_mask, r, 0.0) for r in res)
+
         cols = tuple(self.init_fn(rng, th))
         if len(cols) != self.d:
             raise ValueError("init_fn must return num_state_cols columns")
@@ -241,9 +291,29 @@ class SweepOp:
         for t in range(ys.shape[0]):
             y_t = (ys[t, 0] if self.d_y == 1
                    else tuple(ys[t, j] for j in range(self.d_y)))
-            cols = tuple(self.transition_fn(rng, cols, th, t))
-            lw = torch.where(alive_mask, self.log_weight_fn(cols, th, y_t),
-                             _NEG)
+            if self.gaps is None:
+                cols = tuple(self.transition_fn(rng, cols, th, t))
+            else:
+                gap, t_end = self.gaps[t], self.times[t]
+                for s in range(gap):
+                    cols = tuple(self.transition_fn(rng, cols, th,
+                                                    t_end - gap + s))
+            if self.aux_log_weight_fn is not None:
+                aux_lw = masked(self.aux_log_weight_fn(cols, th, y_t))
+                mxa = torch.amax(aux_lw, dim=1, keepdim=True)
+                dead = dead | (mxa < _DEGENERATE)
+                sha = torch.exp(aux_lw - mxa)
+                pos_a = self._positions(rng, lane_f, alive, alive_mask)
+                cols = select(sha / tree_sum(sha), pos_a, cols)
+                aux_anc = torch.maximum(
+                    masked(self.aux_log_weight_fn(cols, th, y_t)),
+                    torch.tensor(_NEG, device=dev))
+                t_q2 = t if self.gaps is None else self.times[t] - 1
+                cols = tuple(self.transition_fn(rng, cols, th, t_q2))
+                lw = masked(masked(self.log_weight_fn(cols, th, y_t))
+                            - aux_anc)
+            else:
+                lw = masked(self.log_weight_fn(cols, th, y_t))
             mx = torch.amax(lw, dim=1, keepdim=True)
             dead = dead | (mx < _DEGENERATE)
             shifted = torch.exp(lw - mx)
@@ -255,9 +325,7 @@ class SweepOp:
                 est_w = w
             else:
                 pos = self._positions(rng, lane_f, alive, alive_mask)
-                res = select_cols_reference(cdf_ext(w, lane_f, alive), pos,
-                                            cols)
-                res = tuple(torch.where(alive_mask, r, 0.0) for r in res)
+                res = select(w, pos, cols)
                 if self.mode == "always":
                     cols, est_w = res, w_res
                 else:
@@ -265,6 +333,10 @@ class SweepOp:
                     cols = tuple(torch.where(do, r, x)
                                  for r, x in zip(res, cols))
                     est_w = torch.where(do, w_res, w)
+            if self.move_fn is not None:
+                moved = self.move_fn(rng, cols, th, y_t)
+                cols = tuple(torch.where(alive_mask, m, x)
+                             for m, x in zip(moved, cols))
             live_f = 1.0 - dead.to(torch.float32)
             est.append(torch.cat([tree_sum(est_w * x) * live_f
                                   for x in cols], dim=1))
@@ -290,9 +362,9 @@ def build_sweep_op(
     """Build the batched whole-sweep op (module docstring).
 
     Same argument checks as the JAX sweep builder (``sweep_builder.py:580-597``).
-    APF (``aux_log_weight_fn``), RMPF (``move_fn``) and irregular
-    ``obs_gaps`` are not ported yet (ROADMAP Queue 1, "APF and RMPF
-    through the engine, then in K1").
+    ``aux_log_weight_fn`` makes every day an APF day and ``move_fn`` an
+    RMPF day (give at most one); ``obs_gaps`` of all ones is the
+    contiguous grid.
     """
     if resample_fn not in ("stratified", "systematic"):
         raise ValueError(
@@ -303,24 +375,23 @@ def build_sweep_op(
         raise ValueError(
             "always_resample and never_resample are mutually exclusive"
         )
+    if aux_log_weight_fn is not None and move_fn is not None:
+        raise ValueError(
+            "aux_log_weight_fn (APF) and move_fn (RMPF) are two filters; "
+            "give one of them"
+        )
     if obs_gaps is not None:
         obs_gaps = tuple(int(g) for g in obs_gaps)
         if any(g < 1 for g in obs_gaps):
             raise ValueError("obs_gaps entries must be >= 1")
-        if any(g != 1 for g in obs_gaps):
-            raise NotImplementedError(
-                "irregular obs_gaps are not ported yet (ROADMAP Queue 1, "
-                "APF and RMPF through the engine, then in K1)"
-            )
-    if aux_log_weight_fn is not None or move_fn is not None:
-        raise NotImplementedError(
-            "the APF and RMPF sweep days are not ported yet (ROADMAP "
-            "Queue 1, APF and RMPF through the engine, then in K1)"
-        )
+        if all(g == 1 for g in obs_gaps):
+            obs_gaps = None  # contiguous: no gap loop
     mode = ("always" if always_resample
             else "never" if never_resample else "adaptive")
     return SweepOp(num_state_cols, init_fn, transition_fn, log_weight_fn,
-                   num_params, resample_fn, mode, num_obs_cols, kernel)
+                   num_params, resample_fn, mode, num_obs_cols, kernel,
+                   aux_log_weight_fn=aux_log_weight_fn, move_fn=move_fn,
+                   gaps=obs_gaps)
 
 
 def build_sweep_pf_impl(
@@ -329,11 +400,15 @@ def build_sweep_pf_impl(
     transition_fn,
     log_weight_fn,
     param_names,
+    aux_log_weight_fn=None,
+    move_fn=None,
     num_obs_cols: int = 1,
     obs_transform=None,
     kernel: KernelModel | None = None,
 ):
-    """PMMH ``pf_impl`` factory over :func:`build_sweep_op` (BPF only).
+    """PMMH ``pf_impl`` factory over :func:`build_sweep_op`: BPF, APF when
+    ``aux_log_weight_fn`` is given, RMPF when ``move_fn`` is given (RMPF
+    forces SISR and never SIS), and ``obs_times`` as gap counts.
 
     The factory takes the arguments of the JAX ``pf_impl`` hook and returns
     ``pf(seed_words [C, 2], theta [C, P], n=num_particles) -> (loglike,
@@ -345,21 +420,20 @@ def build_sweep_pf_impl(
     def factory(y, num_particles, param_names, model_fns, obs_times,
                 algorithm, resample_algorithm, resample_fn, carry_weights,
                 max_particles=None):
+        from bayesssm_tpu_torch.filters.core import obs_times_to_gaps
+
         del model_fns
         if algorithm not in ("BPF", "APF", "RMPF"):
             raise ValueError(
                 "the sweep builder supports BPF, APF or RMPF only"
             )
-        if algorithm != "BPF":
-            raise NotImplementedError(
-                f"{algorithm} sweeps are not ported yet (ROADMAP Queue 1, "
-                "APF and RMPF through the engine, then in K1)"
-            )
-        if obs_times is not None:
-            raise NotImplementedError(
-                "obs_times are not ported yet (ROADMAP Queue 1, APF and "
-                "RMPF through the engine, then in K1)"
-            )
+        if algorithm == "APF" and aux_log_weight_fn is None:
+            raise ValueError("APF requires the builder's aux_log_weight_fn")
+        if algorithm == "RMPF" and move_fn is None:
+            raise ValueError("RMPF requires the builder's move_fn")
+        ys = torch.as_tensor(y, dtype=torch.float32)
+        obs_gaps = (None if obs_times is None
+                    else obs_times_to_gaps(obs_times, ys.shape[0]))
         if carry_weights:
             raise ValueError(
                 "the sweep builder implements the reference fresh-weight "
@@ -376,12 +450,17 @@ def build_sweep_pf_impl(
         perm = [names.index(q) for q in expected]
         op = build_sweep_op(
             num_state_cols, init_fn, transition_fn, log_weight_fn,
-            len(expected), resample_fn=resample_fn,
-            always_resample=resample_algorithm == "SISR",
-            never_resample=resample_algorithm == "SIS",
-            num_obs_cols=num_obs_cols, kernel=kernel,
+            len(expected),
+            aux_log_weight_fn=aux_log_weight_fn if algorithm == "APF"
+            else None,
+            move_fn=move_fn if algorithm == "RMPF" else None,
+            resample_fn=resample_fn,
+            always_resample=(algorithm == "RMPF"
+                             or resample_algorithm == "SISR"),
+            never_resample=(resample_algorithm == "SIS"
+                            and algorithm != "RMPF"),
+            num_obs_cols=num_obs_cols, obs_gaps=obs_gaps, kernel=kernel,
         )
-        ys = torch.as_tensor(y, dtype=torch.float32)
         if obs_transform is not None:
             ys = obs_transform(ys)
         on_device = {}

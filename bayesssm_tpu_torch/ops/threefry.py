@@ -16,7 +16,10 @@ chain, the numbers the JAX engine draws for the same key:
 * :func:`uniform` and :func:`normal` — ``jax/_src/random.py::_uniform``
   (23 random mantissa bits under the exponent of 1.0, minus 1, scaled by
   one fused multiply-add, floored at ``minval``) and ``_normal_real`` (``sqrt(2) * erfinv(u)`` with
-  ``u`` uniform on ``(nextafter(-1, 0), 1)``).
+  ``u`` uniform on ``(nextafter(-1, 0), 1)``);
+* :func:`randint` — ``_randint`` for int32: two 32-bit blocks from the
+  two halves of ``split(key)``, folded into the span with uint32
+  arithmetic.
 
 Everything here follows JAX's partitionable threefry
 (``jax_threefry_partitionable=True``, the default of the JAX versions the
@@ -36,7 +39,7 @@ import math
 import numpy as np
 import torch
 
-from bayesssm_tpu_torch.ops.rng import MASK32
+from bayesssm_tpu_torch.ops.rng import MASK32, mul32
 
 __all__ = [
     "threefry2x32",
@@ -46,9 +49,12 @@ __all__ = [
     "fold_in",
     "random_bits",
     "uniform",
+    "randint",
     "erfinv",
     "normal",
 ]
+
+_INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
@@ -155,6 +161,45 @@ def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0,
     if span == 1.0 and lo == 0.0:
         return floats
     return torch.clamp_min(_fma(floats, float(span), float(lo)), float(lo))
+
+
+def randint(keys: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+    """int32 integers on ``[minval, maxval)`` (``jax.random.randint`` with
+    the default int32 dtype). ``minval``/``maxval`` are ints or integer
+    tensors that broadcast against ``[..., *shape]``.
+
+    The bounds are clipped to the int32 range; ``maxval <= minval`` gives
+    ``minval``. Two blocks ``hi``, ``lo`` are folded into the span as
+    ``((hi % span) * (2**32 % span) + lo % span) % span`` in wrapping
+    uint32 arithmetic, with ``2**32 % span`` taken as ``(2**16 % span)**2
+    % span``; a span that wraps to 0 leaves the sum as it is."""
+    shape = _shape(shape)
+    dev = keys.device
+
+    def bound(v):
+        return torch.as_tensor(v, dtype=torch.int64, device=dev)
+
+    lo_raw, hi_raw = bound(minval), bound(maxval)
+    lo = lo_raw.clamp(_INT32_MIN, _INT32_MAX)
+    hi = hi_raw.clamp(_INT32_MIN, _INT32_MAX)
+    k1, k2 = split(keys).unbind(-2)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = (hi - lo) & MASK32
+    span = torch.where(hi <= lo, 1, span)
+    span = torch.where((hi_raw > _INT32_MAX) & (hi > lo), (span + 1) & MASK32,
+                       span)
+
+    def rem(x, m):
+        # XLA's unsigned remainder by zero returns the dividend.
+        return torch.where(m == 0, x, torch.remainder(x, torch.where(
+            m == 0, 1, m)))
+
+    mult = rem(torch.full_like(span, 1 << 16), span)
+    mult = rem(mul32(mult, mult), span)
+    offset = rem((mul32(rem(higher, span), mult) + rem(lower, span)) & MASK32,
+                 span)
+    out = (lo + offset) & MASK32
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
 
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:

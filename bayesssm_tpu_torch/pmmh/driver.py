@@ -468,6 +468,18 @@ def _sample_in_chunks(pf, state, m, burn_in, prior_fns, transforms,
     return np.concatenate(samples, axis=1), latent, accepted
 
 
+def _resolve_device(device) -> torch.device:
+    """``pmmh()``'s device: the current CUDA device unless the caller names
+    one; no silent fallback to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "pmmh() runs on a CUDA device by default and found none; pass "
+            'device="cpu" to run the chains on the CPU')
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def pmmh(
     pf_wrapper,
     y,
@@ -500,14 +512,17 @@ def pmmh(
     resume: bool = False,
     pf_impl=None,
     progress_every: Optional[int] = None,
+    *,
+    device=None,
 ) -> PMMHOutput:
     """Run PMMH with pilot tuning; returns a :class:`PMMHOutput`.
 
-    The JAX function's arguments, defaults, checks and messages. The
-    chains run on the current CUDA device when there is one, else on the
-    CPU, as the JAX driver runs on JAX's default backend. ``seed`` is an
-    int or the ``[2]`` words of a key; the module docstring states the
-    RNG contract.
+    The JAX function's arguments, defaults, checks and messages, plus the
+    keyword-only ``device`` the chains run on: by default the current CUDA
+    device. Without a card the call raises ``RuntimeError`` unless the
+    caller asks for the CPU with ``device="cpu"``; it never falls back to
+    the CPU by itself. ``seed`` is an int or the ``[2]`` words of a key;
+    the module docstring states the RNG contract.
 
     ``pf_impl`` replaces ``_make_pf_loglike`` in both phases, e.g.
     ``sir_sweep_pf_impl(500, 70)`` for the whole-sweep kernel; its filter
@@ -521,11 +536,10 @@ def pmmh(
     ``"tuning"``, ``"compile"`` (building and loading the CUDA kernels,
     when this call did so; else 0) and ``"sampling"``.
 
-    Not ported yet: ``mesh`` (ROADMAP Queue 1 item 6, multi-GPU),
+    Not ported yet: ``mesh`` (ROADMAP Queue 1 item 6, multi-GPU) and
     ``checkpoint_every``/``checkpoint_path``/``resume`` (item 5,
-    checkpointing) and the APF/RMPF filters (item 2); each raises
-    ``NotImplementedError``. ``chain_axis`` and ``particle_axis`` name
-    mesh axes and are read only with a mesh.
+    checkpointing); each raises ``NotImplementedError``. ``chain_axis`` and
+    ``particle_axis`` name mesh axes and are read only with a mesh.
     """
     # ---------------- validation ----------------
     if not isinstance(m, (int, np.integer)) or m < 1:
@@ -572,10 +586,6 @@ def pmmh(
                 "via pilot_init_params."
             )
 
-    if algorithm != "BPF":
-        raise NotImplementedError(
-            f"{algorithm} in pmmh() is not ported yet (ROADMAP Queue 1 "
-            "item 2, APF and RMPF through the engine, then in K1)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh is not ported yet (ROADMAP Queue 1 item 6, multi-GPU)")
@@ -585,8 +595,7 @@ def pmmh(
             "yet (ROADMAP Queue 1 item 5, checkpointing)")
     del chain_axis, particle_axis
 
-    dev = (torch.device("cuda", torch.cuda.current_device())
-           if torch.cuda.is_available() else torch.device("cpu"))
+    dev = _resolve_device(device)
     root_key, seed_out = _root_key(seed)
     chain_keys = threefry.fold_in(root_key.to(dev),
                                   torch.arange(num_chains, device=dev))

@@ -45,7 +45,31 @@ Phases:
     K4) and once through the engine (K3 and K4, no K1). Tuning and
     sampling seconds, samples/s as C (m - 1) / sampling, target_n and the
     lane bound, acceptance, ESS and R-hat; finite samples, acceptance
-    strictly inside (0, 1), target_n in [50, 1000].
+    strictly inside (0, 1), target_n in [50, 1000];
+12. K1's APF, RMPF and gapped sweeps (``obs_times`` with gaps of 1-3
+    days) against the plain sweep at 4096 x 128 x 10: bitwise, or >= 99%
+    of chains within 1e-3; kernel ms (CUDA events, 10 launches) and plain
+    ms;
+13. K3 as the engine's APF aux resample runs it (3 columns: S, I and the
+    clamped aux log-weight; forced) at 4096 x 128, bitwise;
+14. MH samples/s of the APF and the RMPF, the port of ``bench.py
+    --config apf|rmpf`` with either ``--transition``: the sweep path 64
+    steps, the engine path 32 steps with K4 and K3 launched twice a day
+    (APF) or once (RMPF); finite samples, acceptance strictly inside
+    (0, 1);
+15. ``pmmh("auxiliary_filter")`` and ``pmmh("resample_move_filter")`` on
+    both paths with phase 11's control, m = 128 and burn_in = 32;
+16. the kernels at the 1024-lane bound the APF runs of phase 15 reach
+    (4096 chains, per-chain counts spread over 50..1000): K1's APF
+    against the plain sweep (>= 99% of chains within 1e-3), K3 as the
+    engine's APF day step and aux resample, and K4, bitwise; kernel and
+    plain ms.
+
+Each kernel's bound is the larger of the bytes it must move over the
+card's memory rate and its lane instructions over the card's rate for
+their pipe (``bound``); K1's and K4's instructions are mostly the
+Gillespie events this run's data needs, counted by the plain versions
+(``EventTally``).
 
 ``--profile`` adds a ``torch.profiler`` window over 8 steps of each path
 (and of each ``pmmh()`` path's phase 2, at its lane bound and counts)
@@ -85,6 +109,40 @@ AGREE_TOL = 1e-3       # |d loglike| per chain, kernel vs plain sweep
 AGREE_SHARE = 0.99     # share of chains that must agree within AGREE_TOL
 # pmmh() as the JAX package's `bench.py --config pmmh` runs it.
 PMMH_M, PMMH_BURN_IN = 512, 128
+# The APF and RMPF pmmh() runs are cut to a quarter of the steps: at
+# m = 512 the engine's RMPF alone took 116 s of the script's 214 s (H100,
+# 700 W). The width stays.
+FILTER_PMMH_M, FILTER_PMMH_BURN_IN = 128, 32
+# Observation gaps of the gapped sweep: 10 observations over 14 days.
+GAPS = (1, 2, 1, 1, 3, 1, 1, 2, 1, 1)
+# One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bandwidth, and
+# 67 TFLOP/s in float32 outside the tensor cores, which counts a fused
+# multiply-add as two: 128 lanes x 2 x 132 SMs x 1.98 GHz.
+PEAK_BYTES_S = 3.35e12
+SM_CLOCKS_S = 67e12 / (2 * 128)
+# Lane instructions per SM and clock on compute capability 9.0 (the CUDA
+# C++ Programming Guide's throughput table): four schedulers issue 32
+# lanes each (and 128 float32 adds or multiplies run), 64 integer adds,
+# logic ops, shifts and compares, 16 MUFU operations (reciprocal, exp2,
+# log2) or conversions. The kernels are built with --fmad=false, so a
+# float32 add or multiply is one instruction, not half of one FMA.
+ISSUE_PER_SM, ALU_PER_SM, XU_PER_SM = 128, 64, 16
+# Lane instructions per Gillespie event (models.cuh::sir_day), counted from
+# the source as (all, integer ALU, MUFU or conversion): two counter draws
+# (14 each: counter add and multiply, key xor, lowbias32's three shift-xor
+# pairs and two multiplies, the shift, one conversion, the scale), the
+# rates (4), the IEEE reciprocal (~6, one MUFU), log1pf (~20, one
+# conversion) and the clock, event choice and predicated updates (~14).
+EVENT_INSTR = (72, 25, 4)
+
+
+def stage_instr(n: int):
+    """Lane instructions, at least, of one weight-and-selection stage of a
+    K1 day (or of K3) outside the events: log-weight, exp and the
+    normalising divides (~50), a position draw (~25), the reductions,
+    the CDF scan and the binary search (~20 per halving of ``n``); an APF
+    day has two stages, and an RMPF day's move costs about one more."""
+    return (100 + 20 * math.log2(n), 0, 6)
 
 
 def say(phase: str, **kv) -> None:
@@ -126,6 +184,29 @@ def graph_ms(fn, reps: int) -> float:
     with torch.cuda.graph(graph):
         fn()
     return cuda_ms(graph.replay, reps)
+
+
+def bound(bytes_moved: float, *work):
+    """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
+    and the lane instructions over the card's rate for their pipe. Each
+    ``work`` item is ``(count, (all, alu, xu))``: ``count`` times that many
+    lane instructions of each kind."""
+    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    issue, alu, xu = (sum(k * w[j] for k, w in work) for j in range(3))
+    t_ops = max(issue / ISSUE_PER_SM, alu / ALU_PER_SM,
+                xu / XU_PER_SM) / SM_CLOCKS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sweep_bound(c: int, n: int, live: float, t: int, stages: int, tally):
+    """K1 over ``c`` chains of ``n`` lanes, ``live`` of them alive: reads
+    seeds, the [T, 2] observation rows, theta, counts and thresholds,
+    writes loglike and [T+1, 2] estimates; its instructions are the
+    tallied events plus ``stages`` weight-and-selection stages a live
+    lane."""
+    bytes_moved = 4 * (6 * c + 2 * t) + 4 * (c + 2 * c * (t + 1))
+    return bound(bytes_moved, (tally.fired, EVENT_INSTR),
+                 (live * stages, stage_instr(n)))
 
 
 def words_for(c: int, seed: int, dev) -> torch.Tensor:
@@ -200,9 +281,23 @@ def phase_select(dev) -> None:
     cols = [torch.randn((r, n), device=dev) for _ in range(2)]
     kernel_ms = graph_ms(lambda: select_cols(cdf, pos, cols), 20)
     plain_ms = graph_ms(lambda: select_cols_reference(cdf, pos, cols), 20)
+
+    def library():
+        # The nearest PyTorch has: an upper-bound search and a gather per
+        # column (two library calls; the plain version is the same).
+        m = torch.searchsorted(cdf, pos, right=True).clamp_(max=n - 1)
+        return [torch.gather(col, 1, m) for col in cols]
+
+    library_ms = graph_ms(library, 20)
+    # Reads cdf, pos and the columns, writes the columns; a lane's binary
+    # search takes ~6 instructions per halving, its loads and stores ~8.
+    bound_ms, bound_by = bound(4 * r * n * (2 + 2 * 2),
+                               (r * n, (6 * math.log2(n) + 8, 0, 0)))
     say("select", shape=f"{r}x{n}x2", kernel_ms=kernel_ms,
-        plain_ms=plain_ms)
-    return 0.0, kernel_ms, plain_ms
+        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, share_of_bound=bound_ms / kernel_ms)
+    return dict(max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def phase_lgss(dev) -> None:
@@ -227,20 +322,28 @@ def phase_lgss(dev) -> None:
         raise AssertionError("LGSS kernel mean is off the Kalman value")
 
 
-def sir_inputs(dev):
+def sir_inputs(dev, algorithm="BPF", gaps=None):
     from bayesssm_tpu_torch.models.sir import simulate_sir
     from bayesssm_tpu_torch.ops.sir_sweep import _sir_op
 
     _, y = simulate_sir(seed=1405)
-    op, obs_transform = _sir_op(500, 70, 8, "stratified", False, False)
+    op, obs_transform = _sir_op(500, 70, 8, "stratified",
+                                algorithm == "RMPF", False, algorithm, 2,
+                                gaps)
     y2 = obs_transform(torch.as_tensor(y, device=dev))
     return y, op, y2
 
 
-def phase_sir(dev):
+def sweep_check(dev, what, algorithm="BPF", gaps=None, reps=10,
+                n=PARTICLES, counts=None):
+    """K1 against the plain sweep at 4096 chains x ``n`` lanes x 10 days,
+    every lane alive or ``counts [C]`` of them: agreement, a second launch
+    bitwise equal, kernel and plain ms, and the bound from the events the
+    plain sweep counted."""
     from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.ops.gillespie import EventTally
 
-    _, op, y2 = sir_inputs(dev)
+    _, op, y2 = sir_inputs(dev, algorithm, gaps)
     rng = np.random.default_rng(5)
     base = np.array([0.5, 0.2], np.float32)
     theta = torch.as_tensor(
@@ -248,76 +351,133 @@ def phase_sir(dev):
         device=dev,
     )
     words = words_for(CHAINS, 1, dev)
+    alive = n if counts is None else counts
+
+    def run(sweep):
+        return sweep(words, y2, theta, alive, max_particles=n)
+
     before = _build.launches["bssm_sweep_sir"]
-    ll_k, est_k = op(words, y2, theta, PARTICLES)
-    ll_k2, est_k2 = op(words, y2, theta, PARTICLES)
-    ll_p, est_p = op.sweep_reference(words, y2, theta, PARTICLES)
+    ll_k, est_k = run(op)
+    ll_k2, est_k2 = run(op)
+    with EventTally() as tally:
+        ll_p, est_p = run(op.sweep_reference)
     torch.cuda.synchronize()
     if _build.launches["bssm_sweep_sir"] != before + 2:
-        raise AssertionError("SIR sweep launch count did not advance")
+        raise AssertionError(f"{what}: sweep launch count did not advance")
     if not (torch.equal(ll_k, ll_k2) and torch.equal(est_k, est_k2)):
-        raise AssertionError("SIR kernel is not deterministic")
+        raise AssertionError(f"{what}: the kernel is not deterministic")
     if not bool(torch.isfinite(est_k).all()):
-        raise AssertionError("SIR state estimates are not finite")
-    err = compare(ll_k, ll_p, "sir")
-    kernel_ms = cuda_ms(lambda: op(words, y2, theta, PARTICLES), 10)
-    plain_ms = cuda_ms(lambda: op.sweep_reference(words, y2, theta,
-                                                  PARTICLES), 2)
-    say("sir", shape=f"{CHAINS}x{PARTICLES}x10", kernel_ms=kernel_ms,
-        plain_ms=plain_ms)
-    return err, kernel_ms, plain_ms
+        raise AssertionError(f"{what}: state estimates are not finite")
+    bitwise = torch.equal(ll_k, ll_p) and torch.equal(est_k, est_p)
+    err = compare(ll_k, ll_p, what)
+    kernel_ms = cuda_ms(lambda: run(op), reps)
+    plain_ms = cuda_ms(lambda: run(op.sweep_reference), 1)
+    t = y2.shape[0]
+    stages = t * (1 if algorithm == "BPF" else 2)
+    live = CHAINS * n if counts is None else float(counts.sum())
+    bound_ms, bound_by = sweep_bound(CHAINS, n, live, t, stages, tally)
+    say(what, shape=f"{CHAINS}x{n}x{t}", algorithm=algorithm,
+        alive="all" if counts is None else
+        f"{int(counts.min())}..{int(counts.max())}",
+        gaps=gaps, bitwise_equal=bitwise, max_abs_err=err,
+        kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, share_of_bound=bound_ms / kernel_ms,
+        **tally.summary())
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def phase_main_path(dev):
-    from bayesssm_tpu_torch.models.sir import sir_model, sir_sweep_pf_impl
-    from bayesssm_tpu_torch.ops import _build
-    from bayesssm_tpu_torch.pmmh.driver import init_chain_state, sample_chains
+def phase_sir(dev):
+    return sweep_check(dev, "sir")
+
+
+def phase_sweep_branches(dev):
+    """K1's APF stage, RMPF move and gap loop (phase 12)."""
+    for what, algorithm, gaps in (("sir_apf", "APF", None),
+                                  ("sir_rmpf", "RMPF", None),
+                                  ("sir_gapped", "BPF", GAPS)):
+        sweep_check(dev, what, algorithm, gaps)
+
+
+def sir_sampler(dev):
+    """Priors, transforms and a diagonal-proposal sampler state of 4096
+    chains at theta0 = (0.5, 0.2), as the JAX benchmark starts them."""
+    from bayesssm_tpu_torch.models.sir import sir_model
+    from bayesssm_tpu_torch.pmmh.driver import init_chain_state
     from bayesssm_tpu_torch.pmmh.transforms import resolve_transforms
 
-    y, op, y2 = sir_inputs(dev)
     _, log_priors, transform = sir_model()
     names = list(log_priors)
-    prior_fns = [log_priors[p] for p in names]
-    transforms = resolve_transforms(transform, names)
     factors = np.tile(np.diag([0.1, 0.1]).astype(np.float32), (CHAINS, 1, 1))
-    pf = sir_sweep_pf_impl(500, 70)(
-        y, PARTICLES, names, None, None, "BPF", "SISAR", "stratified", False,
-        max_particles=PARTICLES,
-    )
     state = init_chain_state([0.5, 0.2], factors, PARTICLES, 1405, dev)
+    return (state, [log_priors[p] for p in names],
+            resolve_transforms(transform, names))
+
+
+def run_mh(dev, what, pf, steps, per_step):
+    """One warm-up MH step, then ``steps`` timed steps with the launch
+    counts set to 0 just before and read just after; ``per_step`` maps a
+    kernel to the launches each step must make. Returns the counts, the
+    warm state, priors and transforms."""
+    from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.pmmh.driver import sample_chains
+
+    state, prior_fns, transforms = sir_sampler(dev)
     warm = sample_chains(pf, state, 2, 1, prior_fns, transforms)
     torch.cuda.synchronize()
-
-    steps = 64
     _build.reset_launches()
     t0 = time.perf_counter()
     out = sample_chains(pf, warm.state, steps + 1, 0, prior_fns, transforms)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = _build.launches["bssm_sweep_sir"]
-    rate = CHAINS * steps / seconds
+    counts = dict(_build.launches)
     acc = float(out.acceptance_rate.mean())
-    say("main", steps=steps, seconds=seconds, samples_per_s=rate,
-        acceptance=acc, sweep_launches=launches)
-    if launches != steps:
-        raise AssertionError(f"main path launched the sweep {launches} "
-                             f"times for {steps} steps")
+    say(what, steps=steps, seconds=seconds,
+        samples_per_s=CHAINS * steps / seconds, acceptance=acc,
+        k1_launches=counts["bssm_sweep_sir"],
+        k3_launches=counts["bssm_fused_resample"],
+        k4_launches=counts["bssm_gillespie"])
+    for name in counts:
+        if counts[name] != per_step.get(name, 0) * steps:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} "
+                                 f"times in {steps} steps")
     if not np.isfinite(out.samples).all() or not 0.0 < acc < 1.0:
-        raise AssertionError("main path samples are not finite, or the "
+        raise AssertionError(f"{what}: samples are not finite, or the "
                              "acceptance rate is degenerate")
+    return counts, warm.state, prior_fns, transforms
+
+
+def plain_rate(dev, what, pf, state, prior_fns, transforms, steps):
+    from bayesssm_tpu_torch.pmmh.driver import sample_chains
+
+    t0 = time.perf_counter()
+    sample_chains(pf, state, steps + 1, 0, prior_fns, transforms)
+    torch.cuda.synchronize()
+    say(what, plain_samples_per_s=CHAINS * steps / (time.perf_counter() - t0),
+        plain_steps=steps)
+
+
+def sweep_pf(algorithm="BPF"):
+    from bayesssm_tpu_torch.models.sir import simulate_sir, sir_sweep_pf_impl
+
+    _, y = simulate_sir(seed=1405)
+    return sir_sweep_pf_impl(500, 70)(
+        y, PARTICLES, ["lam", "gamma"], None, None, algorithm, "SISAR",
+        "stratified", False, max_particles=PARTICLES)
+
+
+def phase_main_path(dev):
+    _, op, y2 = sir_inputs(dev)
+    pf = sweep_pf()
+    counts, state, prior_fns, transforms = run_mh(
+        dev, "main", pf, 64, {"bssm_sweep_sir": 1})
 
     def plain_pf(words, theta, n):
         return op.sweep_reference(words, y2, theta, n,
                                   max_particles=PARTICLES)
 
-    plain_steps = 4
-    t0 = time.perf_counter()
-    sample_chains(plain_pf, warm.state, plain_steps + 1, 0, prior_fns,
-                  transforms)
-    torch.cuda.synchronize()
-    plain_rate = CHAINS * plain_steps / (time.perf_counter() - t0)
-    say("main", plain_samples_per_s=plain_rate, plain_steps=plain_steps)
-    return launches, pf, warm.state, prior_fns, transforms
+    plain_rate(dev, "main", plain_pf, state, prior_fns, transforms, 4)
+    return counts["bssm_sweep_sir"], pf, state, prior_fns, transforms
 
 
 def phase_fused_resample(dev):
@@ -382,24 +542,97 @@ def phase_fused_resample(dev):
                             f"always={always}")
                     if (c, route, method, always) == (
                             CHAINS, "inkernel", "stratified", False):
-                        timed = (kern, plain)
+                        timed = (kern, plain, float(alive.sum()))
         say("fused_resample", shape=f"{c}x{n}x{d}", calls=calls,
             bitwise_equal=True)
     if _build.launches["bssm_fused_resample"] != before + calls:
         raise AssertionError("bssm_fused_resample launch count is off")
     kernel_ms = graph_ms(timed[0], 20)
     plain_ms = graph_ms(timed[1], 5)
+    bound_ms, bound_by = fused_resample_bound(CHAINS, PARTICLES, 2, timed[2])
     say("fused_resample", shape=f"{CHAINS}x{PARTICLES}x2",
         mode="inkernel stratified adaptive", kernel_ms=kernel_ms,
         plain_ms=plain_ms, kernel_ms_host_issued=cuda_ms(timed[0], 20),
-        plain_ms_host_issued=cuda_ms(timed[1], 5))
-    return 0.0, kernel_ms, plain_ms
+        plain_ms_host_issued=cuda_ms(timed[1], 5), bound_ms=bound_ms,
+        bound_by=bound_by, share_of_bound=bound_ms / kernel_ms)
+    return dict(max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def phase_gillespie(dev):
-    """K4 against its plain version, bitwise, at the main path's shape."""
+def fused_resample_bound(c: int, n: int, d: int, live=None):
+    """K3: reads log-weights, particles, uniform weights, thresholds, seed
+    words and counts; writes particles, weights, ESS and log-sum-exp; one
+    weight-and-selection stage a live lane (``live`` of them, else all)."""
+    bytes_moved = 4 * (c * n * (2 + d) + 4 * c) + 4 * (c * n * (1 + d) + 2 * c)
+    return bound(bytes_moved, (c * n if live is None else live,
+                               stage_instr(n)))
+
+
+def k3_check(dev, what, n, alive, aux):
+    """K3 on 4096 chains of ``n`` lanes, ``alive [C]`` of them live,
+    against its plain version, bitwise, and timed. ``aux``: as the engine's
+    APF aux resample runs it (S, I and the clamped aux log-weight as three
+    columns, forced, threshold 0); else as its day step (S and I,
+    adaptive at half the live count)."""
+    from bayesssm_tpu_torch.ops.resampling_fused import (
+        fused_weight_resample_reference,
+        fused_weight_resample_seeded,
+    )
+
+    c = CHAINS
+    gen = torch.Generator(device=dev).manual_seed(13)
+    lane = torch.arange(n, dtype=torch.float32, device=dev)
+    live = lane[None, :] < alive[:, None]
+    lw = torch.where(live, 3.0 * torch.randn((c, n), device=dev,
+                                             generator=gen), -1e30)
+    parts = torch.randint(0, 200, (c, n, 2), device=dev,
+                          generator=gen).to(torch.float32)
+    if aux:
+        parts = torch.cat([parts, lw[..., None]], dim=-1).contiguous()
+    uni = torch.where(live, 1.0 / alive[:, None], 0.0)
+    thr = torch.zeros(c, device=dev) if aux else alive / 2.0
+    words = words_for(c, 31, dev)
+
+    def kern():
+        return fused_weight_resample_seeded(lw, parts, words, alive, uni,
+                                            thr, "stratified", aux)
+
+    def plain():
+        return fused_weight_resample_reference(
+            lw, parts, uni, thr, key_words=words, num_alive=alive,
+            method="stratified", always_resample=aux)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: K3 differs from its plain version")
+    kernel_ms = graph_ms(kern, 20)
+    plain_ms = graph_ms(plain, 5)
+    d = parts.shape[2]
+    bound_ms, bound_by = fused_resample_bound(c, n, d, float(alive.sum()))
+    say(what, shape=f"{c}x{n}x{d}", always=aux,
+        alive=f"{int(alive.min())}..{int(alive.max())}", bitwise_equal=True,
+        max_abs_err=0.0, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by,
+        share_of_bound=bound_ms / kernel_ms)
+
+
+def phase_fused_resample_aux(dev):
+    """K3 as the engine's APF aux resample runs it (phase 13)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n = PARTICLES
+    alive = torch.randint(n // 2, n + 1, (CHAINS,), device=dev,
+                          generator=gen).to(torch.float32)
+    alive[: CHAINS // 4] = float(n)
+    k3_check(dev, "fused_resample_aux", n, alive, aux=True)
+
+
+def phase_gillespie(dev, what="gillespie", n=PARTICLES):
+    """K4 against its plain version, bitwise, on 4096 chains of ``n``
+    lanes (the main path's shape by default)."""
     from bayesssm_tpu_torch.ops import _build
     from bayesssm_tpu_torch.ops.gillespie import (
+        EventTally,
         gillespie_step,
         gillespie_step_reference,
     )
@@ -409,8 +642,8 @@ def phase_gillespie(dev):
     theta = base * np.exp(0.1 * rng.normal(size=(CHAINS, 2)))
     lam = torch.as_tensor(theta[:, 0].astype(np.float32), device=dev)
     gam = torch.as_tensor(theta[:, 1].astype(np.float32), device=dev)
-    s = rng.integers(250, 431, size=(CHAINS, PARTICLES))
-    i = np.minimum(rng.integers(0, 120, size=(CHAINS, PARTICLES)), 500 - s)
+    s = rng.integers(250, 431, size=(CHAINS, n))
+    i = np.minimum(rng.integers(0, 120, size=(CHAINS, n)), 500 - s)
     i[::64] = 0                      # whole chains with I = 0
     i[:, :3] = 0                     # and some lanes of every chain
     state = torch.as_tensor(np.stack([s, i], -1).astype(np.float32),
@@ -418,14 +651,16 @@ def phase_gillespie(dev):
     words = words_for(CHAINS, 4, dev)
     before = _build.launches["bssm_gillespie"]
     got = gillespie_step(words, state, lam, gam, 500)
-    want = gillespie_step_reference(words, state, lam, gam, 500)
+    with EventTally() as tally:
+        want = gillespie_step_reference(words, state, lam, gam, 500)
     torch.cuda.synchronize()
     if _build.launches["bssm_gillespie"] != before + 1:
         raise AssertionError("bssm_gillespie launch count is off")
     if not torch.equal(got, want):
-        raise AssertionError("K4 differs from its plain version")
+        raise AssertionError(f"{what}: K4 differs from its plain version")
     if bool((got.sum(-1) > state.sum(-1)).any()) or bool((got < 0).any()):
-        raise AssertionError("K4 broke the population bounds")
+        raise AssertionError(f"{what}: K4 broke the population bounds")
+
     def kern():
         return gillespie_step(words, state, lam, gam, 500)
 
@@ -435,10 +670,16 @@ def phase_gillespie(dev):
     # host's, as it does on the engine path.
     plain_ms = cuda_ms(
         lambda: gillespie_step_reference(words, state, lam, gam, 500), 3)
-    say("gillespie", shape=f"{CHAINS}x{PARTICLES}", bitwise_equal=True,
+    # Reads the state, seed words and rates; writes the state.
+    bound_ms, bound_by = bound(4 * (4 * CHAINS * n + 4 * CHAINS),
+                               (tally.fired, EVENT_INSTR))
+    say(what, shape=f"{CHAINS}x{n}", bitwise_equal=True, max_abs_err=0.0,
         kernel_ms=kernel_ms, plain_ms=plain_ms,
-        kernel_ms_host_issued=cuda_ms(kern, 20))
-    return 0.0, kernel_ms, plain_ms
+        kernel_ms_host_issued=cuda_ms(kern, 20), bound_ms=bound_ms,
+        bound_by=bound_by, share_of_bound=bound_ms / kernel_ms,
+        **tally.summary())
+    return dict(max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def phase_engine_lgss(dev):
@@ -470,31 +711,39 @@ def phase_engine_lgss(dev):
         raise AssertionError("the LGSS engine mean is off the Kalman value")
 
 
-def engine_pf(dev, plain=False):
-    """The slice's batched filter: ``_make_pf_loglike`` on SIR with the
-    per-day kernels, or with their plain versions (portable weight step,
-    plain day-step) when ``plain``."""
-    from bayesssm_tpu_torch.models.sir import simulate_sir, sir_model
+def engine_pf(dev, plain=False, algorithm="BPF"):
+    """The engine's batched filter: ``_make_pf_loglike`` on SIR with the
+    per-day kernels for ``algorithm``, or the bootstrap filter on their
+    plain versions (portable weight step, plain day-step) when
+    ``plain``."""
+    from bayesssm_tpu_torch.models.sir import (
+        simulate_sir,
+        sir_aux_log_likelihood_fn,
+        sir_model,
+        sir_move_fn,
+    )
     from bayesssm_tpu_torch.ops.gillespie import gillespie_step_reference
     from bayesssm_tpu_torch.pmmh.tuning import _make_pf_loglike
 
     _, y = simulate_sir(seed=1405)
-    (init_fn, trans_fn, ll_fn), log_priors, transform = sir_model(
+    (init_fn, trans_fn, ll_fn), log_priors, _ = sir_model(
         500, 70, transition="gillespie_pallas")
     names = list(log_priors)
     if not plain:
         return _make_pf_loglike(
-            y, PARTICLES, names, (init_fn, trans_fn, ll_fn, None, None),
-            None, "BPF", "SISAR", "stratified", False,
-            max_particles=PARTICLES), log_priors, transform
+            y, PARTICLES, names,
+            (init_fn, trans_fn, ll_fn, sir_aux_log_likelihood_fn,
+             sir_move_fn(500)),
+            None, algorithm, "SISAR", "stratified", False,
+            max_particles=PARTICLES)
     from bayesssm_tpu_torch.filters import bootstrap_filter
+
+    ys = torch.as_tensor(y, dtype=torch.float32, device=dev)
 
     def plain_trans(key, particles, lam, gamma):
         return gillespie_step_reference(key, particles, lam, gamma, 500)
 
-    ys = torch.as_tensor(y, dtype=torch.float32, device=dev)
-
-    def pf(words, theta, n):
+    def plain_pf(words, theta, n):
         res = bootstrap_filter(
             words, ys, n, init_fn, plain_trans, ll_fn,
             theta={q: theta[:, j] for j, q in enumerate(names)},
@@ -502,73 +751,73 @@ def engine_pf(dev, plain=False):
             use_fused=False)
         return res.loglike, res.state_est
 
-    return pf, log_priors, transform
+    return plain_pf
 
 
 def phase_engine_path(dev):
-    from bayesssm_tpu_torch.ops import _build
-    from bayesssm_tpu_torch.pmmh.driver import init_chain_state, sample_chains
-    from bayesssm_tpu_torch.pmmh.transforms import resolve_transforms
-
-    pf, log_priors, transform = engine_pf(dev)
-    names = list(log_priors)
-    prior_fns = [log_priors[p] for p in names]
-    transforms = resolve_transforms(transform, names)
-    factors = np.tile(np.diag([0.1, 0.1]).astype(np.float32), (CHAINS, 1, 1))
-    state = init_chain_state([0.5, 0.2], factors, PARTICLES, 1405, dev)
-    warm = sample_chains(pf, state, 2, 1, prior_fns, transforms)
-    torch.cuda.synchronize()
-
-    steps = 32
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    out = sample_chains(pf, warm.state, steps + 1, 0, prior_fns, transforms)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = dict(_build.launches)
-    rate = CHAINS * steps / seconds
-    acc = float(out.acceptance_rate.mean())
-    say("engine", steps=steps, seconds=seconds, samples_per_s=rate,
-        acceptance=acc, k3_launches=counts["bssm_fused_resample"],
-        k4_launches=counts["bssm_gillespie"],
-        k1_launches=counts["bssm_sweep_sir"])
-    for name in ("bssm_fused_resample", "bssm_gillespie"):
-        if counts[name] != 10 * steps:
-            raise AssertionError(f"the engine path launched {name} "
-                                 f"{counts[name]} times in {steps} steps")
-    if not np.isfinite(out.samples).all() or not 0.0 < acc < 1.0:
-        raise AssertionError("engine path samples are not finite, or the "
-                             "acceptance rate is degenerate")
-
-    plain_pf, _, _ = engine_pf(dev, plain=True)
-    plain_steps = 2
-    t0 = time.perf_counter()
-    sample_chains(plain_pf, warm.state, plain_steps + 1, 0, prior_fns,
-                  transforms)
-    torch.cuda.synchronize()
-    plain_rate = CHAINS * plain_steps / (time.perf_counter() - t0)
-    say("engine", plain_samples_per_s=plain_rate, plain_steps=plain_steps)
-    return counts, pf, warm.state, prior_fns, transforms
+    pf = engine_pf(dev)
+    counts, state, prior_fns, transforms = run_mh(
+        dev, "engine", pf, 32,
+        {"bssm_fused_resample": 10, "bssm_gillespie": 10})
+    plain_rate(dev, "engine", engine_pf(dev, plain=True), state, prior_fns,
+               transforms, 2)
+    return counts, pf, state, prior_fns, transforms
 
 
-def phase_pmmh(path, control):
+def phase_filters_mh(dev):
+    """MH samples/s of the APF and the RMPF on both paths (phase 14), the
+    port of ``bench.py --config apf|rmpf`` with either ``--transition``:
+    the engine's APF launches K4 and K3 twice a day, its RMPF once."""
+    counts = []
+    for algorithm, per_day in (("APF", 2), ("RMPF", 1)):
+        counts.append(run_mh(dev, f"sweep_{algorithm.lower()}",
+                             sweep_pf(algorithm), 64,
+                             {"bssm_sweep_sir": 1})[0])
+        counts.append(run_mh(
+            dev, f"engine_{algorithm.lower()}",
+            engine_pf(dev, algorithm=algorithm), 32,
+            {"bssm_fused_resample": 10 * per_day,
+             "bssm_gillespie": 10 * per_day})[0])
+    return counts
+
+
+def phase_lane_bound(dev):
+    """Phase 16: the kernels at the 1024-lane bound that phase 15's APF
+    ``pmmh()`` runs reach, on 4096 chains with per-chain counts spread over
+    50..1000 as its tuning leaves them: K1's APF against the plain sweep,
+    K3 as the engine's APF day step and aux resample, and K4, each against
+    its plain version on the same inputs."""
+    n = 1024
+    counts = torch.as_tensor(np.random.default_rng(16).permutation(
+        np.linspace(50, 1000, CHAINS).round()).astype(np.float32),
+        device=dev)
+    sweep_check(dev, "lane_bound_sir_apf", "APF", reps=3, n=n, counts=counts)
+    k3_check(dev, "lane_bound_fused_resample", n, counts, aux=False)
+    k3_check(dev, "lane_bound_fused_resample_aux", n, counts, aux=True)
+    phase_gillespie(dev, "lane_bound_gillespie", n)
+
+
+def phase_pmmh(path, control, pf_wrapper="bootstrap_filter", m=PMMH_M,
+               burn_in=PMMH_BURN_IN):
     """The public ``pmmh()`` with pilot tuning at full width on one path:
     ``"sweep"`` (``pf_impl=sir_sweep_pf_impl(500, 70)``, K1) or
     ``"engine"`` (the default filter on ``sir_model(transition=
-    "gillespie_pallas")``, K4 and K3). Returns the kernel launch counts of
-    the call and its output."""
+    "gillespie_pallas")``, K4 and K3), for one of the three filters.
+    Returns the kernel launch counts of the call and its output."""
     import warnings
 
     from bayesssm_tpu_torch import pmmh
     from bayesssm_tpu_torch.models.sir import (
         simulate_sir,
+        sir_aux_log_likelihood_fn,
         sir_model,
+        sir_move_fn,
         sir_sweep_pf_impl,
     )
     from bayesssm_tpu_torch.ops import _build
     from bayesssm_tpu_torch.pmmh.driver import _particle_lane_bound
 
-    chains, m, burn_in = CHAINS, PMMH_M, PMMH_BURN_IN
+    chains = CHAINS
     _, y = simulate_sir(seed=1405)
     (init_fn, trans_fn, ll_fn), log_priors, transform = sir_model(
         500, 70, transition="gillespie_pallas")
@@ -576,18 +825,23 @@ def phase_pmmh(path, control):
     _build.reset_launches()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")   # ESS/R-hat advice on short runs
-        out = pmmh("bootstrap_filter", y, m, init_fn, trans_fn, ll_fn,
+        out = pmmh(pf_wrapper, y, m, init_fn, trans_fn, ll_fn,
                    log_priors, {"lam": 0.5, "gamma": 0.2}, burn_in,
-                   num_chains=chains, param_transform=transform, seed=1405,
-                   tune_control=control, pf_impl=pf_impl,
+                   num_chains=chains,
+                   aux_log_likelihood_fn=sir_aux_log_likelihood_fn,
+                   move_fn=sir_move_fn(500), param_transform=transform,
+                   seed=1405, tune_control=control, pf_impl=pf_impl,
                    print_summary=False)
     counts = dict(_build.launches)
     t = out.timings
     tn = out.target_n
     acc = float(out.acceptance_rate.mean())
+    path = f"{path}-{pf_wrapper}"
     say("pmmh", path=path, chains=chains, m=m, burn_in=burn_in,
         pilot_m=control.pilot_m, pilot_reps=control.pilot_reps,
-        cut="pilot_m 2000->200 and pilot_reps 100->20 (bench.py's)",
+        cut="pilot_m 2000->200 and pilot_reps 100->20 (bench.py's)"
+        + ("" if m == PMMH_M else f"; m {PMMH_M}->{m}, burn_in "
+           f"{PMMH_BURN_IN}->{burn_in}"),
         tuning_s=t["tuning"], compile_s=t["compile"],
         sampling_s=t["sampling"],
         samples_per_s=chains * (m - 1) / t["sampling"],
@@ -619,11 +873,11 @@ def phase_pmmh(path, control):
         raise AssertionError(f"pmmh ({path}): target_n outside [50, 1000]")
     k1 = counts["bssm_sweep_sir"]
     k34 = (counts["bssm_fused_resample"], counts["bssm_gillespie"])
-    if path == "sweep" and (k1 == 0 or any(k34)):
-        raise AssertionError(f"pmmh sweep path launched K1 {k1} times and "
+    if pf_impl is not None and (k1 == 0 or any(k34)):
+        raise AssertionError(f"pmmh {path} launched K1 {k1} times and "
                              f"K3/K4 {k34} times")
-    if path == "engine" and (k1 != 0 or not all(k34)):
-        raise AssertionError(f"pmmh engine path launched K1 {k1} times and "
+    if pf_impl is None and (k1 != 0 or not all(k34)):
+        raise AssertionError(f"pmmh {path} launched K1 {k1} times and "
                              f"K3/K4 {k34} times")
     return counts, out
 
@@ -720,54 +974,59 @@ def main() -> int:
     for ln in ptx:
         print(f"[build] {ln}")
 
-    select_err, select_ms, select_plain_ms = phase_select(dev)
+    select_row = phase_select(dev)
     phase_lgss(dev)
-    err, kernel_ms, plain_ms = phase_sir(dev)
-    sweep_launches, sweep_pf, sweep_state, prior_fns, transforms = (
+    sweep_row = phase_sir(dev)
+    sweep_launches, main_pf, sweep_state, prior_fns, transforms = (
         phase_main_path(dev))
-    k3_err, k3_ms, k3_plain_ms = phase_fused_resample(dev)
-    k4_err, k4_ms, k4_plain_ms = phase_gillespie(dev)
+    k3_row = phase_fused_resample(dev)
+    k4_row = phase_gillespie(dev)
     phase_engine_lgss(dev)
     counts, eng_pf, eng_state, prior_fns, transforms = phase_engine_path(dev)
     if "--profile" in sys.argv[1:]:
-        profile_steps("sweep", sweep_pf, sweep_state, prior_fns, transforms)
+        profile_steps("sweep", main_pf, sweep_state, prior_fns, transforms)
         profile_steps("engine", eng_pf, eng_state, prior_fns, transforms)
 
     from bayesssm_tpu_torch import default_tune_control
 
     control = default_tune_control(pilot_m=200, pilot_burn_in=50,
                                    pilot_reps=20)
-    pmmh_counts = []
+    main_counts = []
     for path in ("sweep", "engine"):
         run_counts, out = phase_pmmh(path, control)
-        pmmh_counts.append(run_counts)
+        main_counts.append(run_counts)
         if "--profile" in sys.argv[1:]:
             profile_steps(f"pmmh-{path}", *pmmh_phase2(dev, path, out))
+
+    phase_sweep_branches(dev)
+    phase_fused_resample_aux(dev)
+    main_counts += phase_filters_mh(dev)
+    for wrapper in ("auxiliary_filter", "resample_move_filter"):
+        for path in ("sweep", "engine"):
+            main_counts.append(phase_pmmh(path, control, wrapper,
+                                          FILTER_PMMH_M,
+                                          FILTER_PMMH_BURN_IN)[0])
+    phase_lane_bound(dev)
     for name in counts:
-        counts[name] += sum(c[name] for c in pmmh_counts)
-    sweep_launches += sum(c["bssm_sweep_sir"] for c in pmmh_counts)
+        counts[name] += sum(c[name] for c in main_counts)
+    sweep_launches += sum(c["bssm_sweep_sir"] for c in main_counts)
 
     # select_index has no launch of its own on either path: it runs inside
     # every sweep and every fused-resample launch counted here.
     select_launches = sweep_launches + counts["bssm_fused_resample"]
     say("select", main_path_launches_of_its_kernels=select_launches)
+    rows = (("bssm_sweep_sir", SWEEP_SOURCE, SWEEP_REPLACES, sweep_launches,
+             sweep_row),
+            ("bssm_select", SELECT_SOURCE, SELECT_REPLACES, select_launches,
+             select_row),
+            ("bssm_fused_resample", RESAMPLE_SOURCE, RESAMPLE_REPLACES,
+             counts["bssm_fused_resample"], k3_row),
+            ("bssm_gillespie", GILLESPIE_SOURCE, GILLESPIE_REPLACES,
+             counts["bssm_gillespie"], k4_row))
     print(json.dumps({"kernels": [
-        {"name": "bssm_sweep_sir", "route": ROUTE, "source": SWEEP_SOURCE,
-         "replaces": SWEEP_REPLACES, "launches": sweep_launches,
-         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms},
-        {"name": "bssm_select", "route": ROUTE, "source": SELECT_SOURCE,
-         "replaces": SELECT_REPLACES, "launches": select_launches,
-         "max_abs_err": select_err, "ms": select_ms,
-         "plain_ms": select_plain_ms},
-        {"name": "bssm_fused_resample", "route": ROUTE,
-         "source": RESAMPLE_SOURCE, "replaces": RESAMPLE_REPLACES,
-         "launches": counts["bssm_fused_resample"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "bssm_gillespie", "route": ROUTE,
-         "source": GILLESPIE_SOURCE, "replaces": GILLESPIE_REPLACES,
-         "launches": counts["bssm_gillespie"], "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
-    ]}))
+        {"name": name, "route": ROUTE, "source": source, "replaces": replaces,
+         "launches": launches, **row}
+        for name, source, replaces, launches, row in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -272,3 +272,76 @@ def test_pmmh_tuning_on_the_card_matches_the_cpu(dev):
     assert _build.launches["bssm_sweep_sir"] == (control.pilot_m + 1) + 6
     np.testing.assert_array_equal(out.target_n, cpu["target_n"].numpy())
     assert all(np.isfinite(v).all() for v in out.theta_chain.values())
+
+
+@pytest.mark.parametrize("n", [128, 1024])
+@pytest.mark.parametrize("algo,gapped", [("APF", False), ("RMPF", False),
+                                         ("BPF", True), ("APF", True)])
+def test_sir_kernel_apf_rmpf_gaps_bitwise(dev, algo, gapped, n):
+    """K1's APF stage, RMPF move and gap loop against the plain sweep, bit
+    for bit, with per-chain counts below the lane bound."""
+    _, y = simulate_sir(seed=1405)
+    gaps = (1, 2, 1, 1, 3, 1, 1, 2, 1, 1) if gapped else None
+    op, obs = _sir_op(500, 70, 8, "stratified", algo == "RMPF", False, algo,
+                      2, gaps)
+    y2 = obs(torch.as_tensor(y, device=dev))
+    c = 64
+    gen = torch.Generator(device=dev).manual_seed(17)
+    theta = (torch.tensor([[0.5, 0.2]], device=dev)
+             * torch.exp(0.1 * torch.randn((c, 2), device=dev,
+                                           generator=gen))).contiguous()
+    counts = torch.linspace(n // 2, n, c, device=dev).round()
+    words = _words(c, 18, dev)
+    before = _build.launches["bssm_sweep_sir"]
+    ll, est = op(words, y2, theta, counts, max_particles=n)
+    assert _build.launches["bssm_sweep_sir"] == before + 1
+    ll_p, est_p = op.sweep_reference(words, y2, theta, counts,
+                                     max_particles=n)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ll).all()
+    assert torch.equal(ll, ll_p) and torch.equal(est, est_p)
+
+
+def test_lgss_kernel_refuses_apf(dev):
+    """The LGSS functor has no aux weight: the entry point refuses an APF
+    day instead of running a BPF one."""
+    bpf = _lgss_op(1.0, 1.0, "stratified", False, False)
+    theta = torch.tensor([[0.9, 0.6, 0.4]], device=dev)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _build.launch_sweep(bpf.kernel, _words(1, 1, dev),
+                            torch.zeros((3, 1), device=dev), theta,
+                            torch.full((1,), 128.0, device=dev),
+                            torch.full((1,), 64.0, device=dev), 128, d=1,
+                            mode=0, systematic=False, algorithm=1)
+
+
+@pytest.mark.parametrize("n,low", [(128, 64), (1024, 50)])
+def test_fused_resample_with_an_aux_column_bitwise(dev, n, low):
+    """K3 as the engine's APF aux resample runs it: the aux log-weights
+    clamped at -1e30 as a third column, forced, threshold 0; at 1024 lanes
+    with counts down to 50, as a tuned APF pmmh() runs it."""
+    from bayesssm_tpu_torch.ops.resampling_fused import (
+        fused_weight_resample_reference,
+        fused_weight_resample_seeded,
+    )
+
+    c = 256
+    gen = torch.Generator(device=dev).manual_seed(19)
+    alive = torch.randint(low, n + 1, (c,), device=dev,
+                          generator=gen).to(torch.float32)
+    lane = torch.arange(n, dtype=torch.float32, device=dev)
+    live = lane[None, :] < alive[:, None]
+    aux = torch.where(live, 2.0 * torch.randn((c, n), device=dev,
+                                              generator=gen), -1e30)
+    parts = torch.cat([torch.randn((c, n, 2), device=dev, generator=gen),
+                       aux[..., None]], dim=-1)
+    uni = torch.where(live, 1.0 / alive[:, None], 0.0)
+    zero = torch.zeros(c, device=dev)
+    words = _words(c, 20, dev)
+    got = fused_weight_resample_seeded(aux, parts, words, alive, uni, zero,
+                                       "stratified", True)
+    want = fused_weight_resample_reference(
+        aux, parts, uni, zero, key_words=words, num_alive=alive,
+        method="stratified", always_resample=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -1,5 +1,5 @@
-"""The port's generic engine (``filters/core.py``) and bootstrap filter
-against the JAX package's, per key.
+"""The port's generic engine (``filters/core.py``) and its three filters
+(bootstrap, auxiliary, resample-move) against the JAX package's, per key.
 
 The port runs all keys of a case as one batch; each JAX reference is a
 jitted call for one key (un-vmapped: a vmapped Pallas call would draw
@@ -17,17 +17,35 @@ import numpy as np
 import pytest
 import torch
 
+from bayesssm_tpu.filters.auxiliary import auxiliary_filter as j_apf
 from bayesssm_tpu.filters.bootstrap import bootstrap_filter as j_bpf
+from bayesssm_tpu.filters.resample_move import resample_move_filter as j_rmpf
+from bayesssm_tpu.models.distributions import norm_logpdf as j_norm
 from bayesssm_tpu.models.lgss import lgss_model as j_lgss_model
-from bayesssm_tpu.models.sir import sir_model as j_sir_model
+from bayesssm_tpu.models.sir import (
+    sir_aux_log_likelihood_fn as j_sir_aux,
+    sir_model as j_sir_model,
+    sir_move_fn as j_sir_move_fn,
+)
+from bayesssm_tpu.utils.signatures import adapt_move_fn as j_adapt_move_fn
 from bayesssm_tpu_torch.filters import (
     FilterConfig,
+    auxiliary_filter,
     bootstrap_filter,
     particle_filter_core,
+    resample_move_filter,
 )
 from bayesssm_tpu_torch.filters.core import obs_times_to_gaps
+from bayesssm_tpu_torch.models.distributions import norm_logpdf
 from bayesssm_tpu_torch.models.lgss import lgss_model, simulate_lgss
-from bayesssm_tpu_torch.models.sir import simulate_sir, sir_model
+from bayesssm_tpu_torch.models.sir import (
+    simulate_sir,
+    sir_aux_log_likelihood_fn,
+    sir_model,
+    sir_move_fn,
+)
+from bayesssm_tpu_torch.ops import threefry
+from bayesssm_tpu_torch.utils.signatures import adapt_move_fn
 
 torch.set_num_threads(1)
 
@@ -312,11 +330,14 @@ def test_engine_errors_and_unported_options():
         particle_filter_core(*args, algorithm="RMPF")
     with pytest.raises(ValueError, match="algorithm must be one of"):
         particle_filter_core(*args, algorithm="XXX")
-    with pytest.raises(NotImplementedError, match="APF and RMPF"):
-        particle_filter_core(*args, algorithm="APF", aux_weight_fn=_ok_lik)
-    with pytest.raises(NotImplementedError, match="APF and RMPF"):
-        particle_filter_core(*args, algorithm="RMPF",
-                             move_fn=lambda key, particles: particles)
+    # APF and RMPF run through the engine now.
+    apf = particle_filter_core(*args, algorithm="APF", aux_weight_fn=_ok_lik)
+    rmpf = particle_filter_core(*args, algorithm="RMPF",
+                                move_fn=lambda key, particles: particles)
+    for res, algo in ((apf, "APF"), (rmpf, "RMPF")):
+        assert res.algorithm == algo and res.loglike.shape == (1,)
+        assert np.isfinite(res.loglike.numpy()).all()
+    assert (rmpf.ess.numpy() == 8).all()              # RMPF forces SISR
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         particle_filter_core(*args, particle_axis="p", particle_axis_size=2)
     with pytest.raises(ValueError, match="chain key words"):
@@ -341,3 +362,186 @@ def test_check_params_match_mirrors_jax():
                                              "contain 'y'"):
             check(init_fn, trans_fn, lambda particles: particles, params,
                   priors)
+
+
+# --- APF and RMPF through the engine ---
+
+MOVE_SD = 0.3
+
+
+def j_lgss_move(key, particles, y, sigma_y):
+    k1, k2 = jax.random.split(key)
+    prop = particles + MOVE_SD * jax.random.normal(k1, particles.shape)
+    la = j_norm(y, prop, sigma_y) - j_norm(y, particles, sigma_y)
+    acc = jnp.log(jax.random.uniform(k2, particles.shape)) < la
+    return jnp.where(acc, prop, particles)
+
+
+def p_lgss_move(key, particles, y, sigma_y):
+    k1, k2 = threefry.split(key).unbind(-2)
+    shape = particles.shape[1:]
+    prop = particles + MOVE_SD * threefry.normal(k1, shape)
+    sd = sigma_y[:, None]
+    la = norm_logpdf(y, prop, sd) - norm_logpdf(y, particles, sd)
+    acc = torch.log(threefry.uniform(k2, shape)) < la
+    return torch.where(acc, prop, particles)
+
+
+def j_lgss_move_one(key, particle, y, sigma_y):
+    """A reference-style move written for one particle."""
+    k1, k2 = jax.random.split(key)
+    prop = particle + MOVE_SD * jax.random.normal(k1)
+    la = j_norm(y, prop, sigma_y) - j_norm(y, particle, sigma_y)
+    return jnp.where(jnp.log(jax.random.uniform(k2)) < la, prop, particle)
+
+
+def p_lgss_move_one(key, particle, y, sigma_y):
+    k1, k2 = threefry.split(key).unbind(-2)
+    prop = particle + MOVE_SD * threefry.normal(k1)
+    la = norm_logpdf(y, prop, sigma_y) - norm_logpdf(y, particle, sigma_y)
+    return torch.where(torch.log(threefry.uniform(k2)) < la, prop, particle)
+
+
+LGSS_VARIANTS = {
+    # APF with the Gaussian weight as the lookahead.
+    "APF": (lambda ji, jt, jl: (j_apf, (ji, jt, jl, jl)),
+            lambda pi, pt, pl: (auxiliary_filter, (pi, pt, pl, pl))),
+    "RMPF": (lambda ji, jt, jl: (j_rmpf, (ji, jt, jl, j_lgss_move)),
+             lambda pi, pt, pl: (resample_move_filter,
+                                 (pi, pt, pl, p_lgss_move))),
+    "RMPF-one-particle": (
+        lambda ji, jt, jl: (j_rmpf, (ji, jt, jl, j_lgss_move_one)),
+        lambda pi, pt, pl: (resample_move_filter,
+                            (pi, pt, pl, p_lgss_move_one))),
+}
+
+
+def _variant(name):
+    (ji, jt, jl), (pi, pt, pl) = _lgss_fns()
+    j_make, p_make = LGSS_VARIANTS[name]
+    return j_make(ji, jt, jl), p_make(pi, pt, pl)
+
+
+@pytest.mark.parametrize("use_fused", [False, "interpret",
+                                       "interpret-inkernel"])
+@pytest.mark.parametrize("variant", sorted(LGSS_VARIANTS))
+def test_lgss_apf_rmpf_match_jax(lgss_y, variant, use_fused):
+    """Every weight-step route of APF and RMPF on LGSS, with masked lanes
+    (100 of 128), to 1e-4."""
+    (j_filter, j_fns), (p_filter, p_fns) = _variant(variant)
+    kd = _key_data(1000)
+    kw = dict(theta=LGSS_THETA, max_particles=N, use_fused=use_fused,
+              return_particles=False)
+    runs = _jax_runs(lambda k: j_filter(k, lgss_y, 100, *j_fns, **kw), kd)
+    res = p_filter(_words(kd), lgss_y, 100, *p_fns, **kw)
+    assert res.algorithm == variant[:4]
+    _check(res, runs, TOL)
+
+
+@pytest.mark.parametrize("use_fused", [False, "interpret"])
+def test_lgss_apf_carry_weights_matches_jax(lgss_y, use_fused):
+    """``carry_weights=True`` under APF: the aux resample takes the carried
+    weights, the day's increment the uniform ones."""
+    (j_filter, j_fns), (p_filter, p_fns) = _variant("APF")
+    kd = _key_data(1100)
+    kw = dict(theta=LGSS_THETA, carry_weights=True, use_fused=use_fused,
+              return_particles=False)
+    runs = _jax_runs(lambda k: j_filter(k, lgss_y, N, *j_fns, **kw), kd)
+    res = p_filter(_words(kd), lgss_y, N, *p_fns, **kw)
+    _check(res, runs, TOL)
+
+
+@pytest.mark.parametrize("use_fused", [False, "interpret",
+                                       "interpret-inkernel"])
+@pytest.mark.parametrize("algo", ["APF", "RMPF"])
+def test_sir_apf_rmpf_gillespie_pallas_match_jax(sir_y, algo, use_fused):
+    """APF (``sir_aux_log_likelihood_fn``, K4 twice a day) and RMPF
+    (``sir_move_fn``) on ``transition="gillespie_pallas"``, to 1e-3."""
+    jfns, _, _ = j_sir_model(N_TOTAL, I0, transition="gillespie_pallas",
+                             pallas_interpret=True)
+    pfns, _, _ = sir_model(N_TOTAL, I0, transition="gillespie_pallas")
+    kd = _key_data(1200, 2)
+    kw = dict(theta=SIR_THETA, use_fused=use_fused, return_particles=False)
+    if algo == "APF":
+        runs = _jax_runs(lambda k: j_apf(k, sir_y, N, *jfns, j_sir_aux,
+                                         **kw), kd)
+        res = auxiliary_filter(_words(kd), sir_y, N, *pfns,
+                               sir_aux_log_likelihood_fn, **kw)
+    else:
+        runs = _jax_runs(lambda k: j_rmpf(
+            k, sir_y, N, *jfns, j_sir_move_fn(N_TOTAL), **kw), kd)
+        res = resample_move_filter(_words(kd), sir_y, N, *pfns,
+                                   sir_move_fn(N_TOTAL), **kw)
+    assert np.isfinite(res.loglike.numpy()).all()
+    _check(res, runs, SIR_TOL)
+
+
+def test_sir_move_and_aux_fns_match_jax():
+    """``sir_move_fn`` (threefry ``randint`` and ``uniform`` from the two
+    halves of ``split(key)``) exactly, per key; ``sir_aux_log_likelihood_fn``
+    to 1e-5, the f32 ``lgamma(y + 1)`` ulps between the two libraries
+    (the move's ratio cancels that term)."""
+    rng = np.random.default_rng(5)
+    c, n, y = 6, 200, np.float32(23.0)
+    s = rng.integers(300, 430, size=(c, n)).astype(np.float32)
+    i = np.minimum(rng.integers(0, 60, size=(c, n)), 500 - s)
+    i[:, :5] = 0.0
+    i[0, 5:9] = 500.0 - s[0, 5:9]               # on the support's edge
+    parts = np.stack([s, i.astype(np.float32)], axis=-1)
+    kd = _key_data(1300, c)
+    j_move = jax.jit(j_sir_move_fn(500, 2))
+    want = np.stack([np.asarray(j_move(
+        jax.random.wrap_key_data(jnp.asarray(kd[k])), jnp.asarray(parts[k]),
+        jnp.asarray(y), 0.5, 0.2)) for k in range(c)])
+    pt = torch.as_tensor(parts)
+    got = sir_move_fn(500, 2)(_words(kd), pt, torch.tensor(y),
+                              torch.full((c,), 0.5), torch.full((c,), 0.2))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy() != parts).any()         # some proposals accepted
+    np.testing.assert_allclose(
+        sir_aux_log_likelihood_fn(torch.tensor(y), pt).numpy(),
+        np.stack([np.asarray(j_sir_aux(jnp.asarray(y), jnp.asarray(p)))
+                  for p in parts]), rtol=0, atol=1e-5)
+
+
+def test_adapt_move_fn_matches_jax_and_refuses_python_branches():
+    kd = _key_data(1400, 3)
+    parts = np.random.default_rng(2).normal(size=(3, 50)).astype(np.float32)
+    sy = np.array([0.4, 0.5, 0.6], np.float32)
+    j_move = j_adapt_move_fn(j_lgss_move_one)
+    want = np.stack([np.asarray(j_move(
+        key=jax.random.wrap_key_data(jnp.asarray(kd[k])),
+        particles=jnp.asarray(parts[k]), y=jnp.float32(0.3), t=1,
+        sigma_y=sy[k])) for k in range(3)])
+    got = adapt_move_fn(p_lgss_move_one)(
+        key=_words(kd), particles=torch.as_tensor(parts),
+        y=torch.tensor(0.3), t=1, sigma_y=torch.as_tensor(sy))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    # A batched move is called as it is.
+    assert adapt_move_fn(p_lgss_move)(
+        key=_words(kd), particles=torch.as_tensor(parts),
+        y=torch.tensor(0.3), t=1,
+        sigma_y=torch.as_tensor(sy)).shape == (3, 50)
+
+    def branchy(key, particle):
+        return particle + 1.0 if float(particle) > 0 else particle
+
+    with pytest.raises(ValueError, match="torch.func.vmap"):
+        adapt_move_fn(branchy)(key=_words(kd),
+                               particles=torch.as_tensor(parts))
+
+
+def test_apf_degenerate_aux_weights_give_neg_inf(lgss_y):
+    """Every aux log-weight below -1e8 on one day kills the chain on every
+    route (the fused routes' -1e30 clamp must not cancel)."""
+    (_, _), (p_filter, (pi, pt, pl, _)) = _variant("APF")
+
+    def bad_aux(y, particles, t):
+        return torch.full_like(particles, -1e9 if t == 3 else 0.0)
+
+    for use_fused in (False, "interpret", "interpret-inkernel"):
+        res = p_filter(_words(_key_data(1500, 2)), lgss_y, N, pi, pt, pl,
+                       bad_aux, theta=LGSS_THETA, use_fused=use_fused,
+                       return_particles=False)
+        assert np.isneginf(res.loglike.numpy()).all()
+        assert np.isfinite(res.loglike_history.numpy()[:, :2]).all()

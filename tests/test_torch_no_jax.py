@@ -67,12 +67,21 @@ def test_port_runs_with_jax_blocked():
         assert res.loglike.shape == (3,)
         assert np.isfinite(res.loglike.numpy()).all()
         import bayesssm_tpu_torch as bt
+        keys = threefry.split(threefry.key(2)[None], 3)[0]
+        apf = bt.auxiliary_filter(keys, np.zeros(4), 16, *fns, fns[2],
+                                  theta=dict(a=0.9, sigma_x=0.6,
+                                             sigma_y=0.4))
+        rmpf = bt.resample_move_filter(
+            keys, np.zeros(4), 16, *fns, lambda particles: particles,
+            theta=dict(a=0.9, sigma_x=0.6, sigma_y=0.4))
+        for r in (apf, rmpf):
+            assert np.isfinite(r.loglike.numpy()).all()
         out = bt.pmmh("bootstrap_filter", np.zeros(4), 4, *fns, lp2,
                       {"a": 0.5, "sigma_x": 0.5, "sigma_y": 0.5}, 1,
                       num_chains=2, param_transform=tr2, seed=1,
                       tune_control=bt.default_tune_control(
                           pilot_m=4, pilot_reps=2, pilot_n=20),
-                      print_summary=False)
+                      print_summary=False, device="cpu")
         assert out.theta_chain["a"].shape == (2, 3)
         assert np.isfinite(out.theta_chain["a"]).all()
         assert list(out.timings) == ["tuning", "compile", "sampling"]

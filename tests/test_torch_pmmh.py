@@ -44,18 +44,18 @@ INIT_PARAMS = [
 
 
 def run_small(m=12, burn_in=4, num_chains=2, seed=11, tune=TINY_TUNE, y=Y,
-              **kw):
+              pf_wrapper="bootstrap_filter", **kw):
     kw.setdefault("param_transform", TRANSFORM)
     kw.setdefault("pilot_init_params", INIT_PARAMS[:num_chains])
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         return pmmh(
-            "bootstrap_filter", y, m=m,
+            pf_wrapper, y, m=m,
             init_fn=INIT_FN, transition_fn=TRANSITION_FN,
             log_likelihood_fn=LOGLIK_FN, log_priors=LOG_PRIORS,
             burn_in=burn_in, num_chains=num_chains, seed=seed,
             tune_control=default_tune_control(**tune),
-            print_summary=False, **kw,
+            print_summary=False, device="cpu", **kw,
         )
 
 
@@ -109,10 +109,6 @@ NOT_PORTED = {
     "checkpoint_every": (dict(checkpoint_every=5), "item 5"),
     "checkpoint_path": (dict(checkpoint_path="snapshot.npz"), "item 5"),
     "resume": (dict(resume=True), "item 5"),
-    "apf": (dict(pf_wrapper="auxiliary_filter",
-                 aux_log_likelihood_fn=LOGLIK_FN), "item 2"),
-    "rmpf": (dict(pf_wrapper="resample_move_filter",
-                  move_fn=lambda particles: particles), "item 2"),
 }
 
 
@@ -123,11 +119,39 @@ def test_unported_options_name_their_roadmap_item(case):
         pmmh(**_call(**kw))
 
 
+# The APF and RMPF cases that raised NotImplementedError above until the
+# two filters were ported: they run now, on the CPU.
+FILTER_VARIANTS = {
+    "apf": dict(pf_wrapper="auxiliary_filter",
+                aux_log_likelihood_fn=LOGLIK_FN),
+    "rmpf": dict(pf_wrapper="resample_move_filter",
+                 move_fn=lambda particles: particles),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FILTER_VARIANTS))
+def test_apf_and_rmpf_run(case):
+    out = pmmh(**_call(m=4, seed=3, param_transform=TRANSFORM,
+                       tune_control=default_tune_control(**TINY_TUNE),
+                       device="cpu", **FILTER_VARIANTS[case]))
+    for arr in out.theta_chain.values():
+        assert arr.shape == (2, 3) and np.isfinite(arr).all()
+
+
+def test_no_card_and_no_device_raises():
+    """Without a card ``pmmh()`` refuses to pick the CPU by itself."""
+    if torch.cuda.is_available():
+        pytest.skip("the machine has a card: pmmh() runs there by default")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        pmmh(**_call(m=3, tune_control=default_tune_control(**TINY_TUNE)))
+
+
 def test_invalid_transform_warns():
     with pytest.warns(UserWarning, match="identity"):
         pmmh(**_call(m=3, param_transform={"a": "nope", "sigma_x": "log",
                                            "sigma_y": "log"},
-                     tune_control=default_tune_control(**TINY_TUNE)))
+                     tune_control=default_tune_control(**TINY_TUNE),
+                     device="cpu"))
 
 
 def test_output_structure_and_the_same_seed_gives_the_same_samples():
@@ -159,27 +183,72 @@ def test_transform_dict_order_does_not_change_the_chains():
         np.testing.assert_array_equal(o1.theta_chain[q], o2.theta_chain[q])
 
 
-def test_target_n_and_first_sample_match_the_jax_pmmh():
-    """The same LGSS call (``FAST_TUNE`` of ``tests/test_pmmh.py``, three
-    chains): the tuned counts are equal, and with ``burn_in=0`` the first
-    sample is the pilot mean to 1e-5. (``tests/test_torch_tuning.py``
-    holds a count inside (50, 1000) to JAX's per key.)"""
+def _jax_and_port_first_samples(pf_wrapper, j_extra=None, p_extra=None,
+                                tune=FAST_TUNE):
     kw = dict(m=3, burn_in=0, num_chains=3, seed=11,
               param_transform=TRANSFORM)
     j_fns, j_priors, _ = j_lgss_model()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        want = j_pmmh("bootstrap_filter", Y, init_fn=j_fns[0],
+        want = j_pmmh(pf_wrapper, Y, init_fn=j_fns[0],
                       transition_fn=j_fns[1], log_likelihood_fn=j_fns[2],
                       log_priors=j_priors, pilot_init_params=INIT_PARAMS,
-                      tune_control=j_tune(**FAST_TUNE), print_summary=False,
-                      **kw)
-    got = run_small(tune=FAST_TUNE, **kw)
+                      tune_control=j_tune(**tune), print_summary=False,
+                      **kw, **(j_extra or {}))
+    got = run_small(tune=tune, pf_wrapper=pf_wrapper, **kw,
+                    **(p_extra or {}))
     np.testing.assert_array_equal(got.target_n, want.target_n)
     for q in got.theta_chain:
         np.testing.assert_allclose(got.theta_chain[q][:, 0],
                                    want.theta_chain[q][:, 0], rtol=0,
                                    atol=1e-5)
+    return got
+
+
+def test_target_n_and_first_sample_match_the_jax_pmmh():
+    """The same LGSS call (``FAST_TUNE`` of ``tests/test_pmmh.py``, three
+    chains): the tuned counts are equal, and with ``burn_in=0`` the first
+    sample is the pilot mean to 1e-5. (``tests/test_torch_tuning.py``
+    holds a count inside (50, 1000) to JAX's per key.)"""
+    _jax_and_port_first_samples("bootstrap_filter")
+
+
+def _j_lgss_move(key, particles, y, sigma_y):
+    from bayesssm_tpu.models.distributions import norm_logpdf as j_norm
+
+    k1, k2 = jax.random.split(key)
+    prop = particles + 0.3 * jax.random.normal(k1, particles.shape)
+    la = j_norm(y, prop, sigma_y) - j_norm(y, particles, sigma_y)
+    acc = jax.numpy.log(jax.random.uniform(k2, particles.shape)) < la
+    return jax.numpy.where(acc, prop, particles)
+
+
+def _p_lgss_move(key, particles, y, sigma_y):
+    from bayesssm_tpu_torch.models.distributions import norm_logpdf
+    from bayesssm_tpu_torch.ops import threefry
+
+    k1, k2 = threefry.split(key).unbind(-2)
+    prop = particles + 0.3 * threefry.normal(k1, particles.shape[1:])
+    sd = sigma_y[:, None]
+    la = norm_logpdf(y, prop, sd) - norm_logpdf(y, particles, sd)
+    acc = torch.log(threefry.uniform(k2, particles.shape[1:])) < la
+    return torch.where(acc, prop, particles)
+
+
+@pytest.mark.parametrize("pf_wrapper", ["auxiliary_filter",
+                                        "resample_move_filter"])
+def test_apf_rmpf_target_n_and_first_sample_match_the_jax_pmmh(pf_wrapper):
+    """The engine path of the two other filters, as the test above holds
+    the bootstrap filter: APF with the Gaussian weight as its lookahead,
+    RMPF with a random-walk move on x. Tuned counts equal, first sample to
+    1e-5."""
+    if pf_wrapper == "auxiliary_filter":
+        j_extra = dict(aux_log_likelihood_fn=j_lgss_model()[0][2])
+        p_extra = dict(aux_log_likelihood_fn=LOGLIK_FN)
+    else:
+        j_extra = dict(move_fn=_j_lgss_move)
+        p_extra = dict(move_fn=_p_lgss_move)
+    _jax_and_port_first_samples(pf_wrapper, j_extra, p_extra)
 
 
 def test_a_jax_key_gives_the_int_seeds_run():
@@ -235,7 +304,8 @@ def test_low_ess_warns_and_the_summary_prints(capsys):
     tune = default_tune_control(pilot_m=20, pilot_reps=3, pilot_n=50)
     with pytest.warns(UserWarning, match="ESS values are below 400"):
         out = pmmh(**_call(m=8, burn_in=2, seed=5, param_transform=TRANSFORM,
-                           tune_control=tune, print_summary=True))
+                           tune_control=tune, print_summary=True,
+                           device="cpu"))
     assert capsys.readouterr().out.strip() == str(out)
 
 
@@ -260,11 +330,49 @@ def test_small_sir_run_through_the_sweep():
                    param_transform=transform, seed=3,
                    tune_control=default_tune_control(pilot_m=10,
                                                      pilot_reps=4),
-                   pf_impl=sir_sweep_pf_impl(100, 10), print_summary=False)
+                   pf_impl=sir_sweep_pf_impl(100, 10), print_summary=False,
+                   device="cpu")
     for arr in out.theta_chain.values():
         assert arr.shape == (3, 6) and np.isfinite(arr).all() and (
             arr > 0).all()
     assert ((out.target_n >= 50) & (out.target_n <= 1000)).all()
+
+
+@pytest.mark.parametrize("pf_wrapper", ["auxiliary_filter",
+                                        "resample_move_filter"])
+def test_small_sir_apf_rmpf_run_on_both_paths(pf_wrapper):
+    """APF and RMPF on SIR through the whole sweep (``pf_impl``) and
+    through the engine: the same seed tunes each path, and the two paths
+    give finite samples and counts in [50, 1000]. (The JAX driver vmaps its
+    pilot, and a vmapped Pallas sweep or day-step draws the block stream,
+    so the per-key comparison of the test above holds on the engine's
+    threefry-only path; ``tests/test_torch_sweep.py`` and
+    ``tests/test_torch_filter_core.py`` hold the SIR filters per key.)"""
+    from bayesssm_tpu_torch.models.sir import (
+        sir_aux_log_likelihood_fn,
+        sir_move_fn,
+    )
+
+    _, y = simulate_sir(seed=7, n_total=100, init_infected=10, t_max=4)
+    fns, log_priors, transform = sir_model(100, 10,
+                                           transition="gillespie_pallas")
+    extra = (dict(aux_log_likelihood_fn=sir_aux_log_likelihood_fn)
+             if pf_wrapper == "auxiliary_filter"
+             else dict(move_fn=sir_move_fn(100)))
+    for pf_impl in (sir_sweep_pf_impl(100, 10), None):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out = pmmh(pf_wrapper, y, 5, *fns, log_priors,
+                       {"lam": 0.4, "gamma": 0.25}, 1, num_chains=2,
+                       param_transform=transform, seed=3,
+                       tune_control=default_tune_control(pilot_m=4,
+                                                         pilot_reps=3),
+                       pf_impl=pf_impl, print_summary=False, device="cpu",
+                       **extra)
+        for arr in out.theta_chain.values():
+            assert arr.shape == (2, 4) and np.isfinite(arr).all() and (
+                arr > 0).all()
+        assert ((out.target_n >= 50) & (out.target_n <= 1000)).all()
 
 
 def test_lgss_posterior_near_truth():

@@ -1,4 +1,5 @@
-"""The port's whole-sweep filter against the JAX package, per key.
+"""The port's whole-sweep filter (BPF, APF, RMPF, gapped days) against
+the JAX package, per key.
 
 Each JAX reference is an UN-vmapped ``interpret=True`` call: one chain per
 program, whose software stream the port reproduces (a vmapped call uses
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from bayesssm_tpu.models.sir import sir_builder_pf_impl as j_sir_pf_impl
 from bayesssm_tpu.ops.lgss_sweep_pallas import lgss_bpf_sweep as j_lgss
 from bayesssm_tpu.ops.sir_sweep_pallas import sir_filter_sweep as j_sir
 from bayesssm_tpu_torch.models.lgss import simulate_lgss
@@ -172,8 +174,11 @@ def test_validation_errors(sir_y, lgss_y):
                       resample_fn="multinomial")
     with pytest.raises(ValueError, match="algorithm"):
         sir_filter_sweep(w, sir_y, N, LAM, GAM, N_TOTAL, I0, algorithm="X")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sir_filter_sweep(w, sir_y, N, LAM, GAM, N_TOTAL, I0, algorithm="APF")
+    # APF and RMPF sweeps run now.
+    for algo in ("APF", "RMPF"):
+        ll, _ = sir_filter_sweep(w, sir_y, N, LAM, GAM, N_TOTAL, I0,
+                                 algorithm=algo)
+        assert torch.isfinite(ll).all()
     with pytest.raises(ValueError, match="sorted positions"):
         lgss_bpf_sweep(w, lgss_y, N, A, SX, SY, resample_fn="multinomial")
     with pytest.raises(ValueError, match="SIS, SISR or SISAR"):
@@ -194,11 +199,21 @@ def test_builder_argument_checks():
                        never_resample=True)
     with pytest.raises(ValueError, match=">= 1"):
         build_sweep_op(1, f, f, f, 1, obs_gaps=(1, 0))
-    with pytest.raises(NotImplementedError, match="obs_gaps"):
-        build_sweep_op(1, f, f, f, 1, obs_gaps=(1, 2))
-    build_sweep_op(1, f, f, f, 1, obs_gaps=(1, 1))  # contiguous is fine
-    with pytest.raises(NotImplementedError, match="APF"):
-        build_sweep_op(1, f, f, f, 1, aux_log_weight_fn=f)
+    gapped = build_sweep_op(1, f, f, f, 1, obs_gaps=(1, 2))
+    assert gapped.gaps == (1, 2) and gapped.times == (1, 3)
+    # The kernel's int32 gaps and times are made once per device.
+    table = gapped._gap_table(torch.device("cpu"))
+    assert table.dtype == torch.int32 and table.tolist() == [[1, 2], [1, 3]]
+    assert gapped._gap_table(torch.device("cpu")) is table
+    with pytest.raises(ValueError, match="obs_gaps has 2 entries"):
+        gapped(torch.zeros(1, 2, dtype=torch.int64), np.zeros(5), [[0.1]],
+               128)
+    # A contiguous grid needs no gap loop.
+    assert build_sweep_op(1, f, f, f, 1, obs_gaps=(1, 1)).gaps is None
+    assert build_sweep_op(1, f, f, f, 1, aux_log_weight_fn=f).algorithm == (
+        "APF")
+    with pytest.raises(ValueError, match="give one of them"):
+        build_sweep_op(1, f, f, f, 1, aux_log_weight_fn=f, move_fn=f)
     with pytest.raises(ValueError, match=r"\[T, 2\]"):
         op = build_sweep_op(1, f, f, f, 1, num_obs_cols=2)
         op(torch.zeros(1, 2, dtype=torch.int64), np.zeros(5), [[0.1]], 128)
@@ -224,12 +239,74 @@ def test_pf_impl_factory(sir_y):
     with pytest.raises(ValueError, match="BPF, APF or RMPF"):
         factory(**{**kw, "algorithm": "SIS"})
     for algo in ("APF", "RMPF"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            factory(**{**kw, "algorithm": algo})
-    with pytest.raises(NotImplementedError, match="obs_times"):
+        ll_a, _ = factory(**{**kw, "algorithm": algo})(words, theta)
+        want_a, _ = sir_filter_sweep(words, sir_y, N, theta[:, 0],
+                                     theta[:, 1], N_TOTAL, I0,
+                                     algorithm=algo)
+        assert torch.equal(ll_a, want_a)
+    # RMPF forces SISR, also over a requested SIS.
+    ll_s, _ = factory(**{**kw, "algorithm": "RMPF",
+                         "resample_algorithm": "SIS"})(words, theta)
+    assert torch.equal(ll_s, factory(**{**kw, "algorithm": "RMPF"})(
+        words, theta)[0])
+    with pytest.raises(ValueError, match="one entry per observation"):
         factory(**{**kw, "obs_times": [1, 3]})
+    from bayesssm_tpu_torch.ops.sir_sweep import sir_sweep_parts
+    from bayesssm_tpu_torch.ops.sweep_builder import build_sweep_pf_impl
+
+    parts = sir_sweep_parts(N_TOTAL, I0)
+    bpf_only = build_sweep_pf_impl(
+        2, parts["init_fn"], parts["transition_fn"], parts["log_weight_fn"],
+        ("lam", "gamma"), num_obs_cols=2,
+        obs_transform=parts["obs_transform"])
+    with pytest.raises(ValueError, match="aux_log_weight_fn"):
+        bpf_only(**{**kw, "algorithm": "APF"})
+    with pytest.raises(ValueError, match="move_fn"):
+        bpf_only(**{**kw, "algorithm": "RMPF"})
     with pytest.raises(ValueError, match="fresh-weight"):
         factory(**{**kw, "carry_weights": True})
     for names in (["a", "b"], ["lam", "lam"], ["lam", "gamma", "gamma"]):
         with pytest.raises(ValueError, match="lam"):
             factory(**{**kw, "param_names": names})
+
+
+@pytest.mark.parametrize("algo,method,alive", [
+    ("APF", "stratified", 128), ("APF", "systematic", 100),
+    ("RMPF", "stratified", 128), ("RMPF", "systematic", 100),
+])
+def test_sir_apf_rmpf_match_jax_per_key(sir_y, algo, method, alive):
+    """K1's APF day (aux selection, recomputed ancestor weight, Q2 second
+    transition) and RMPF day (forced SISR, then the move), plain sweep
+    against JAX ``sir_filter_sweep(..., interpret=True)``, to 1e-3."""
+    kd = _key_words(50)
+    jll, jest = _jax_per_key(
+        lambda k: j_sir(k, jnp.asarray(sir_y), float(alive), LAM, GAM,
+                        N_TOTAL, I0, algorithm=algo, max_particles=N,
+                        resample_fn=method, interpret=True), kd)
+    ll, est = sir_filter_sweep(_torch_words(kd), sir_y, float(alive), LAM,
+                               GAM, N_TOTAL, I0, algorithm=algo,
+                               max_particles=N, resample_fn=method)
+    assert torch.isfinite(ll).all()
+    np.testing.assert_allclose(ll.numpy(), jll, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(est.numpy(), jest, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("algo", ["BPF", "APF", "RMPF"])
+def test_sir_obs_times_match_jax_per_key(sir_y, algo):
+    """``obs_times`` as K1's gap loop: the transition runs ``gaps[t]``
+    times a day at ``times[t] - gaps[t] + s`` (the APF's second transition
+    at ``times[t] - 1``), through the ``pf_impl`` factories of both
+    packages, to 1e-3."""
+    obs_times = [1, 3, 4, 6, 8, 9]
+    args = (sir_y, N, ["lam", "gamma"], None, obs_times, algo, "SISAR",
+            "stratified", False)
+    j_pf = j_sir_pf_impl(N_TOTAL, I0, interpret=True)(*args,
+                                                     max_particles=N)
+    kd = _key_words(60, 2)
+    theta = np.array([LAM, GAM], np.float32)
+    jll, jest = _jax_per_key(lambda k: j_pf(k, jnp.asarray(theta)), kd)
+    pf = sir_sweep_pf_impl(N_TOTAL, I0)(*args, max_particles=N)
+    ll, est = pf(_torch_words(kd), torch.as_tensor(theta).expand(2, 2))
+    assert torch.isfinite(ll).all()
+    np.testing.assert_allclose(ll.numpy(), jll, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(est.numpy(), jest, rtol=0, atol=1e-3)

@@ -92,6 +92,21 @@ def test_uniform_exact(shape, lo, hi):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("shape,lo,hi", [
+    ((257,), 0, 1), ((257,), -2, 3), ((64,), 0, 7), ((5, 9), 0, 2**31 - 1),
+    ((300,), -1000, 17), ((12,), 5, 5), ((12,), 9, -4),
+    ((33,), -2**31, 2**31 - 1),
+])
+def test_randint_exact(shape, lo, hi):
+    """Spans 1, 5, 7, 2**31 - 1 and 2**32 - 1, negative minval and
+    ``maxval <= minval``: the int32 results bit for bit."""
+    kd = _key_data()
+    want = _per_key(lambda k: jax.random.randint(k, shape, lo, hi), kd)
+    got = threefry.randint(threefry.as_key_words(kd), shape, lo, hi)
+    assert got.dtype == torch.int32 and got.shape == (len(kd), *shape)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_normal():
     kd = _key_data(range(12))
     want = _per_key(lambda k: jax.random.normal(k, (500,)), kd)
