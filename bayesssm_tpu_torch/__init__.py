@@ -1,8 +1,12 @@
 """bayesssm_tpu_torch — the PyTorch + CUDA port of ``bayesssm_tpu``.
 
-Runs stochastic-SIR PMMH on an NVIDIA H100 along two paths: the batched
-whole-sweep filter (``ops/sweep_builder.py``, CUDA kernel
-``csrc/sweep.cu``), and the generic particle-filter engine
+Runs PMMH on an NVIDIA H100 for the JAX package's model zoo (stochastic
+SIR with the exact Gillespie day or tau-leaping, the README's sinusoidal
+model, stochastic volatility, the linear-Gaussian SSM with a scalar or a
+vector observation) along two paths: the batched whole-sweep filter
+(``ops/sweep_builder.py``, CUDA kernel ``csrc/sweep.cu`` with one functor
+per model: SIR, LGSS, LGSS-mv, sinusoidal), and the generic
+particle-filter engine
 (``filters/core.py``; ``bootstrap_filter``, ``auxiliary_filter``,
 ``resample_move_filter``) with its per-day kernels, the
 fused weight step (``csrc/resample.cu``) and the Gillespie day-step
@@ -26,6 +30,8 @@ _EXPORTS = {
     "build_sweep_op": "bayesssm_tpu_torch.ops.sweep_builder",
     "build_sweep_pf_impl": "bayesssm_tpu_torch.ops.sweep_builder",
     "lgss_bpf_sweep": "bayesssm_tpu_torch.ops.lgss_sweep",
+    "lgss_mv_bpf_sweep": "bayesssm_tpu_torch.ops.lgss_sweep",
+    "lgss_sweep_pf_impl": "bayesssm_tpu_torch.ops.lgss_sweep",
     "sir_filter_sweep": "bayesssm_tpu_torch.ops.sir_sweep",
     "sir_bpf_sweep": "bayesssm_tpu_torch.ops.sir_sweep",
     "sir_model": "bayesssm_tpu_torch.models.sir",
@@ -33,8 +39,18 @@ _EXPORTS = {
     "sir_aux_log_likelihood_fn": "bayesssm_tpu_torch.models.sir",
     "sir_move_fn": "bayesssm_tpu_torch.models.sir",
     "simulate_sir": "bayesssm_tpu_torch.models.sir",
+    "tau_leap_step": "bayesssm_tpu_torch.models.sir",
     "lgss_model": "bayesssm_tpu_torch.models.lgss",
     "simulate_lgss": "bayesssm_tpu_torch.models.lgss",
+    "lgss_mv_model": "bayesssm_tpu_torch.models.lgss",
+    "simulate_lgss_mv": "bayesssm_tpu_torch.models.lgss",
+    "sinusoidal_model": "bayesssm_tpu_torch.models.sinusoidal",
+    "sinusoidal_sweep_pf_impl": "bayesssm_tpu_torch.models.sinusoidal",
+    "simulate_sinusoidal": "bayesssm_tpu_torch.models.sinusoidal",
+    "sv_model": "bayesssm_tpu_torch.models.stochastic_volatility",
+    "simulate_sv": "bayesssm_tpu_torch.models.stochastic_volatility",
+    "kalman_loglik": "bayesssm_tpu_torch.utils.kalman",
+    "kalman_loglik_mv": "bayesssm_tpu_torch.utils.kalman",
     "pmmh": "bayesssm_tpu_torch.pmmh.driver",
     "default_tune_control": "bayesssm_tpu_torch.pmmh.tuning",
     "TuneControl": "bayesssm_tpu_torch.pmmh.tuning",

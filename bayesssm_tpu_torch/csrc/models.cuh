@@ -17,6 +17,8 @@
 namespace bssm {
 
 constexpr int kMaxEvents = 100000;  // ops/gillespie_pallas.py:52
+// float32(0.5 * log(2 pi)), the Gaussian weights' constant.
+constexpr float kHalfLog2Pi = 0.918938533204672742f;
 
 // The exact SIR jump process over [0, t_end] for one lane: the event body
 // of the JAX package's SIR sweep callback (ops/sir_sweep_pallas.py:119-133)
@@ -148,7 +150,66 @@ struct LgssModel {
   __device__ float log_weight(const float st[D], const float* th,
                               const float* y_t) const {
     const float resid = (y_t[0] - c * st[0]) / th[2];
-    return -0.5f * resid * resid - logf(th[2]) - 0.918938533204672742f;
+    return -0.5f * resid * resid - logf(th[2]) - kHalfLog2Pi;
+  }
+};
+
+// Vector-observation LGSS (ops/lgss_sweep.py::_lgss_mv_op): state x,
+// parameters (a, sigma_x, sigma_y1, sigma_y2), observation row (y1, y2) =
+// (c1, c2) x + independent Gaussian noise.
+struct LgssMvModel {
+  static constexpr int D = 1;
+  static constexpr int P = 4;
+  static constexpr int DY = 2;
+  static constexpr bool kHasAux = false;
+  static constexpr bool kHasMove = false;
+  float c1;
+  float c2;
+  float p0;
+
+  __device__ void init(Rng& rng, float st[D], const float*) const {
+    st[0] = p0 * rng.normal();
+  }
+
+  __device__ void transition(Rng& rng, float st[D], const float* th,
+                             int) const {
+    st[0] = th[0] * st[0] + th[1] * rng.normal();
+  }
+
+  __device__ float log_weight(const float st[D], const float* th,
+                              const float* y_t) const {
+    const float r1 = (y_t[0] - c1 * st[0]) / th[2];
+    const float r2 = (y_t[1] - c2 * st[0]) / th[3];
+    return -0.5f * (r1 * r1 + r2 * r2) - logf(th[2]) - logf(th[3]) -
+           2.0f * kHalfLog2Pi;
+  }
+};
+
+// The README's sinusoidal model (models/sinusoidal.py): x_0 ~ N(0, 1),
+// x_t = phi x + sin(x) + sigma_x eps, y_t ~ N(x_t, sigma_y^2); parameters
+// (phi, sigma_x, sigma_y), no model constants.
+struct SinusoidalModel {
+  static constexpr int D = 1;
+  static constexpr int P = 3;
+  static constexpr int DY = 1;
+  static constexpr bool kHasAux = false;
+  static constexpr bool kHasMove = false;
+
+  __device__ void init(Rng& rng, float st[D], const float*) const {
+    st[0] = rng.normal();
+  }
+
+  // sinf is the accurate one (no fast math), as torch.sin on CUDA calls it.
+  __device__ void transition(Rng& rng, float st[D], const float* th,
+                             int) const {
+    const float x = st[0];
+    st[0] = th[0] * x + sinf(x) + th[1] * rng.normal();
+  }
+
+  __device__ float log_weight(const float st[D], const float* th,
+                              const float* y_t) const {
+    const float r = (y_t[0] - st[0]) / th[2];
+    return -0.5f * r * r - logf(th[2]) - kHalfLog2Pi;
   }
 };
 

@@ -273,6 +273,31 @@ int bssm_sweep_lgss(const int* seeds, const float* y, const float* theta,
                             algorithm, (cudaStream_t)stream);
 }
 
+// y: [T, 2] rows; theta: [C, 4] (a, sigma_x, sigma_y1, sigma_y2).
+int bssm_sweep_lgss_mv(const int* seeds, const float* y, const float* theta,
+                       const float* alive, const float* thr, float* ll,
+                       float* est, const int* gaps, const int* times, int C,
+                       int N, int T, int mode, int systematic, int algorithm,
+                       float c1, float c2, float p0, void* stream) {
+  bssm::LgssMvModel model{c1, c2, p0};
+  return bssm::launch_sweep(model, seeds, y, theta, alive, thr, ll, est,
+                            gaps, times, C, N, T, mode, systematic,
+                            algorithm, (cudaStream_t)stream);
+}
+
+// theta: [C, 3] (phi, sigma_x, sigma_y); the model has no constants.
+int bssm_sweep_sinusoidal(const int* seeds, const float* y,
+                          const float* theta, const float* alive,
+                          const float* thr, float* ll, float* est,
+                          const int* gaps, const int* times, int C, int N,
+                          int T, int mode, int systematic, int algorithm,
+                          void* stream) {
+  bssm::SinusoidalModel model{};
+  return bssm::launch_sweep(model, seeds, y, theta, alive, thr, ll, est,
+                            gaps, times, C, N, T, mode, systematic,
+                            algorithm, (cudaStream_t)stream);
+}
+
 // The selection device function alone, over R rows of N <= 1024 lanes and
 // D value columns laid out [D, R, N].
 int bssm_select(const float* cdf, const float* pos, const float* vals,

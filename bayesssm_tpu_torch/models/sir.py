@@ -7,8 +7,10 @@ gamma ~ HalfNormal(2), both log-transformed.
 
 Two filters run it: the generic engine (``filters/core.py``) with the
 model functions of :func:`sir_model`, whose transition is the per-day
-Gillespie step (``ops/gillespie.py``, kernel K4), and the whole-sweep op
-(``ops/sir_sweep.py``, kernel K1) behind :func:`sir_sweep_pf_impl`.
+Gillespie step (``ops/gillespie.py``, kernel K4) or binomial tau-leaping
+(:func:`tau_leap_step`, plain PyTorch, as the JAX package computes it
+outside any kernel), and the whole-sweep op (``ops/sir_sweep.py``, kernel
+K1) behind :func:`sir_sweep_pf_impl`.
 :func:`sir_aux_log_likelihood_fn` (APF) and :func:`sir_move_fn` (RMPF)
 are the engine's model functions of the two other filters.
 """
@@ -25,7 +27,7 @@ from bayesssm_tpu_torch.models.distributions import (
 from bayesssm_tpu_torch.ops import threefry
 
 __all__ = ["sir_model", "sir_sweep_pf_impl", "sir_aux_log_likelihood_fn",
-           "sir_move_fn", "simulate_sir"]
+           "sir_move_fn", "simulate_sir", "tau_leap_step"]
 
 TRANSITIONS = ("gillespie", "gillespie_pallas", "tauleap")
 
@@ -52,22 +54,17 @@ def sir_model(
     * ``"gillespie"`` — the same op. The JAX ``"gillespie"`` re-keys its
       loop onto an ``rbg`` generator that cannot be matched key by key, so
       the two agree in distribution only;
-    * ``"tauleap"`` — not ported yet (ROADMAP Queue 1, tauleap and the
-      other models).
+    * ``"tauleap"`` — :func:`tau_leap_step` with ``substeps`` leaps a day,
+      drawing the JAX function's binomials per key.
 
-    ``substeps`` belongs to ``"tauleap"``. ``pallas_interpret`` is accepted
-    and ignored: the port picks the implementation by device (the plain
-    version for CPU tensors, the kernel for CUDA tensors).
+    ``pallas_interpret`` is accepted and ignored: the port picks the
+    implementation by device (the plain version for CPU tensors, the
+    kernel for CUDA tensors).
     """
-    del substeps, pallas_interpret
+    del pallas_interpret
     if transition not in TRANSITIONS:
         raise ValueError(
             "transition must be 'gillespie', 'gillespie_pallas' or 'tauleap'"
-        )
-    if transition == "tauleap":
-        raise NotImplementedError(
-            "transition='tauleap' is not ported yet (ROADMAP Queue 1, "
-            "tauleap and the other models)"
         )
     from bayesssm_tpu_torch.ops.gillespie import gillespie_step
 
@@ -81,8 +78,13 @@ def sir_model(
             torch.full((c, num_particles), i0, device=key.device),
         ], dim=-1)
 
-    def transition_fn(key, particles, lam, gamma):
-        return gillespie_step(key, particles, lam, gamma, float(n_total))
+    if transition == "tauleap":
+        def transition_fn(key, particles, lam, gamma):
+            return tau_leap_step(key, particles, lam, gamma, float(n_total),
+                                 substeps)
+    else:
+        def transition_fn(key, particles, lam, gamma):
+            return gillespie_step(key, particles, lam, gamma, float(n_total))
 
     def log_likelihood_fn(y, particles):
         return pois_logpmf(y, particles[..., 1])
@@ -94,6 +96,42 @@ def sir_model(
     param_transform = {"lam": "log", "gamma": "log"}
     return ((init_fn, transition_fn, log_likelihood_fn), log_priors,
             param_transform)
+
+
+def tau_leap_step(key, state, lam, gamma, n_total, substeps: int = 10):
+    """One approximate SIR day by binomial tau-leaping (the JAX
+    ``tau_leap_step``): ``substeps`` leaps of ``dt = 1 / substeps``, with
+    Binomial(S, 1 - exp(-lam I / n_total dt)) infections and
+    Binomial(I, 1 - exp(-gamma dt)) removals per leap.
+
+    ``key [C, 2]``, ``state [C, N, 2]`` (S, I), ``lam`` and ``gamma`` ``[C]``.
+    Each chain's draws are the JAX function's for its key: leap ``j``
+    takes ``split(key, substeps)[j]`` and splits it into the infection and
+    removal keys. The two binomials of a leap run as one batch, and the
+    day's binomial loops share one chain of key splits
+    (``threefry.LoopKeys``), since the keys do not depend on the state.
+    """
+    c = key.shape[0]
+    dt = 1.0 / substeps
+    leap_keys = threefry.split(threefry.split(key, substeps))  # [C, S, 2, 2]
+    flat = leap_keys.reshape(-1, 2)
+    loops = (threefry.LoopKeys(flat, 2, 1), threefry.LoopKeys(flat, 3, 0))
+    # Row (chain, leap, draw) of the day's keys, for each leap.
+    rows = torch.arange(flat.shape[0], device=key.device).reshape(
+        c, substeps, 2)
+    s, i = state[..., 0], state[..., 1]
+    p_rem = (-torch.expm1(-gamma * dt))[:, None].expand_as(i)
+    for j in range(substeps):
+        p_inf = -torch.expm1(-(lam[:, None] / n_total) * i * dt)
+        row_map = rows[:, j].reshape(-1)
+        draws = threefry.binomial(
+            leap_keys[:, j], torch.stack([s, i], dim=1),
+            torch.stack([p_inf, p_rem], dim=1),
+            loops=tuple(loop.rows(row_map) for loop in loops))
+        n_inf, n_rem = draws[:, 0], draws[:, 1]
+        s = s - n_inf
+        i = torch.clamp_min(i + n_inf - n_rem, 0.0)
+    return torch.stack([s, i], dim=-1)
 
 
 def sir_sweep_pf_impl(n_total: int = 500, init_infected: int = 70,

@@ -8,7 +8,8 @@ at the checkout's root (the hash covers sources and flags), loaded with
 and nothing runs on CPU tensors: the launchers raise unless every tensor
 lies on one CUDA device.
 
-Entries: ``bssm_sweep_sir``/``bssm_sweep_lgss`` (K1, ``sweep.cu``),
+Entries: ``bssm_sweep_sir``, ``bssm_sweep_lgss``, ``bssm_sweep_lgss_mv``
+and ``bssm_sweep_sinusoidal`` (K1 with each model functor, ``sweep.cu``),
 ``bssm_select`` (K2 alone), ``bssm_fused_resample`` (K3, ``resample.cu``)
 and ``bssm_gillespie`` (K4, ``gillespie.cu``).
 
@@ -56,6 +57,8 @@ _SWEEP_CONSTS = {
     # inv_nt, s0, i0, unroll, move_step_max
     "bssm_sweep_sir": (_F, _F, _F, _I, _I),
     "bssm_sweep_lgss": (_F, _F),           # c, p0
+    "bssm_sweep_lgss_mv": (_F, _F, _F),    # c1, c2, p0
+    "bssm_sweep_sinusoidal": (),           # no model constants
 }
 # seeds y theta alive thr ll est gaps times, C N T mode systematic algorithm
 _SWEEP_SHARED = (_P,) * 9 + (_I,) * 6

@@ -40,7 +40,9 @@ Two implementations stand behind one op:
   pairwise tree (:func:`tree_sum`), the order of the kernel's shared-memory
   reduction, so the kernel can be held to it chain by chain.
 * the CUDA kernel ``csrc/sweep.cu`` (one thread block per chain), for
-  models that name a :class:`KernelModel` (SIR and LGSS).
+  models that name a :class:`KernelModel`: SIR, LGSS, LGSS with two
+  observation columns, and the sinusoidal model, each a functor in
+  ``csrc/models.cuh``.
 
 Calling the op routes by device: CPU tensors run the plain version, CUDA
 tensors launch the kernel or raise.
@@ -78,8 +80,9 @@ _ALGORITHM = {"BPF": 0, "APF": 1, "RMPF": 2}
 
 class KernelModel(NamedTuple):
     """The CUDA functor that runs a model's callbacks in the kernel:
-    ``entry`` is the C entry point (``bssm_sweep_sir``/``bssm_sweep_lgss``)
-    and ``consts`` its model constants, in the C signature's order."""
+    ``entry`` is the C entry point (``bssm_sweep_sir``, ``bssm_sweep_lgss``,
+    ``bssm_sweep_lgss_mv``, ``bssm_sweep_sinusoidal``) and ``consts`` its
+    model constants, in the C signature's order."""
 
     entry: str
     consts: tuple
@@ -229,7 +232,8 @@ class SweepOp:
             if self.kernel is None:
                 raise NotImplementedError(
                     "this sweep's callbacks have no CUDA kernel; only "
-                    "models with a KernelModel (SIR, LGSS) run on the card"
+                    "models with a KernelModel (SIR, LGSS, LGSS-mv, "
+                    "sinusoidal) run on the card"
                 )
             ll, est = _build.launch_sweep(
                 self.kernel, *args, d=self.d, mode=_MODE[self.mode],

@@ -19,7 +19,11 @@ chain, the numbers the JAX engine draws for the same key:
   ``u`` uniform on ``(nextafter(-1, 0), 1)``);
 * :func:`randint` — ``_randint`` for int32: two 32-bit blocks from the
   two halves of ``split(key)``, folded into the span with uint32
-  arithmetic.
+  arithmetic;
+* :func:`binomial` — ``_binomial`` of JAX 0.9: the inversion algorithm
+  (``_binomial_inversion``) where ``count * q <= 10``, else BTRS
+  (``_btrs`` with ``_stirling_approx_tail``), each a while loop that splits
+  its carried key once per iteration.
 
 Everything here follows JAX's partitionable threefry
 (``jax_threefry_partitionable=True``, the default of the JAX versions the
@@ -52,6 +56,8 @@ __all__ = [
     "randint",
     "erfinv",
     "normal",
+    "binomial",
+    "LoopKeys",
 ]
 
 _INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
@@ -227,3 +233,243 @@ def normal(keys: torch.Tensor, shape=()) -> torch.Tensor:
     """float32 standard normals (``jax.random.normal``)."""
     u = uniform(keys, shape, _NORMAL_LO, 1.0)
     return _SQRT2_F32 * erfinv(u)
+
+
+def _to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """float32 on [0, 1) from 32-bit words (``uniform``'s mantissa fill)."""
+    return ((bits >> 9) | _ONE_F32_BITS).to(torch.int32).view(
+        torch.float32) - 1.0
+
+
+class LoopKeys:
+    """The subkeys of a JAX ``while_loop`` whose body splits its carried
+    key into ``num`` at the top of every iteration, keeps entry ``carry``
+    and draws with the others: ``binomial``'s inversion loop
+    (``subkey, key = split(key)``: ``num=2, carry=1``) and its BTRS loop
+    (``key, sub0, sub1 = split(key, 3)``: ``num=3, carry=0``).
+
+    ``keys [R, 2]`` are the loops' starting keys, one per row; iterations
+    are split once, on first use, for every row at once, so the loops of
+    many rows that run one after another (the binomials of a tau-leaping
+    day) share one chain of splits through views (:meth:`rows`).
+    """
+
+    def __init__(self, keys: torch.Tensor, num: int, carry: int):
+        self._key = keys
+        self._num = num
+        self._carry = carry
+        self._subs = []         # per iteration: [R, num - 1, 2]
+
+    def subkeys(self, lo: int, hi: int, rows: torch.Tensor) -> torch.Tensor:
+        """``[len(rows), hi - lo, num - 1, 2]`` subkeys of iterations
+        ``lo .. hi - 1`` of the given rows."""
+        keep = [j for j in range(self._num) if j != self._carry]
+        while len(self._subs) < hi:
+            s = split(self._key, self._num)
+            self._key = s[:, self._carry]
+            self._subs.append(s[:, keep])
+        return torch.stack(self._subs[lo:hi], dim=1)[rows]
+
+    def rows(self, row_map: torch.Tensor) -> "_LoopRows":
+        """The view whose row ``r`` is this chain's row ``row_map[r]``."""
+        return _LoopRows(self, row_map)
+
+
+class _LoopRows:
+    def __init__(self, loop: LoopKeys, row_map: torch.Tensor):
+        self._loop = loop
+        self._row_map = row_map
+
+    def subkeys(self, lo: int, hi: int, rows: torch.Tensor) -> torch.Tensor:
+        return self._loop.subkeys(lo, hi, self._row_map[rows])
+
+
+# BTRS's Stirling tail table (``_stirling_approx_tail``), float32, and its
+# copy on each device.
+_STIRLING_TAIL = tuple(float(np.float32(v)) for v in (
+    0.0810614667953272, 0.0413406959554092, 0.0276779256849983,
+    0.02079067210376509, 0.0166446911898211, 0.0138761288230707,
+    0.0118967099458917, 0.0104112652619720, 0.00925546218271273,
+    0.00833056343336287))
+_STIRLING_ON = {}
+# Iterations per block of the two loops between checks of termination.
+_INVERSION_BLOCK = 4
+_BTRS_BLOCK = 4
+
+
+def _stirling_approx_tail(k: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_stirling_approx_tail``: the table for ``k <= 9``, else the
+    series at ``k`` clamped to [0, 9] (as JAX evaluates it)."""
+    if k.device not in _STIRLING_ON:
+        _STIRLING_ON[k.device] = torch.tensor(_STIRLING_TAIL,
+                                              dtype=torch.float32,
+                                              device=k.device)
+    use_table = k <= 9
+    k = torch.clamp(k, 0.0, 9.0)
+    kp1sq = (k + 1) * (k + 1)
+    approx = (1.0 / 12 - (1.0 / 360 - 1.0 / 1260 / kp1sq) / kp1sq) / (k + 1)
+    # A NaN k takes the series (NaN) and must not index the table.
+    idx = torch.floor(torch.where(use_table, k, 0.0)).long()
+    return torch.where(use_table, _STIRLING_ON[k.device][idx], approx)
+
+
+def _lane_uniforms(sub: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+    """``uniform(sub, shape)[lane]``: uniforms drawn with subkeys
+    ``sub [..., 2]`` at flat lane indices ``lanes`` (broadcast together)."""
+    b0, b1 = threefry2x32(sub[..., 0], sub[..., 1], lanes >> 32,
+                          lanes & MASK32)
+    return _to_uniform(b0 ^ b1)
+
+
+def _binomial_inversion(loop: LoopKeys, count, log1mp, active):
+    """``_binomial_inversion`` on ``[R, L]`` rows (``L`` lanes each), run
+    for the ``active`` lanes only. A lane stops counting once its
+    geometric sum passes ``count``, and later iterations leave it as it
+    is; so each lane runs until it stops, in blocks, with the lanes still
+    running gathered at each block. Returns ``num_geom - 1``."""
+    r, lanes = count.shape
+    geom_sum = torch.zeros(r * lanes, dtype=count.dtype, device=count.device)
+    num_geom = torch.zeros_like(geom_sum)
+    cnt, l1p = count.reshape(-1), log1mp.reshape(-1)
+    idx = torch.nonzero((active & (count >= 0)).reshape(-1))[:, 0]
+    lo = 0
+    while idx.numel():
+        hi = lo + _INVERSION_BLOCK
+        sub = loop.subkeys(lo, hi, idx // lanes)[:, :, 0]      # [M, B, 2]
+        u = _lane_uniforms(sub, (idx % lanes)[:, None])        # [M, B]
+        geom = torch.ceil(torch.log(u) / l1p[idx, None])
+        g, k, c = geom_sum[idx], num_geom[idx], cnt[idx]
+        for j in range(hi - lo):
+            k = torch.where(g <= c, k + 1, k)
+            g = g + geom[:, j]
+        geom_sum[idx] = g
+        num_geom[idx] = k
+        idx = idx[g <= c]
+        lo = hi
+    return (num_geom - 1).reshape(r, lanes)
+
+
+def _btrs(loop: LoopKeys, count, prob, rows):
+    """``_btrs`` on ``[R, L]`` rows, run for ``rows`` only. A row's loop
+    stops at the first iteration after which every lane has accepted
+    once, and each accepting iteration before that overwrites the lane's
+    draw; so each row runs exactly its own iterations (the rest of a block
+    leaves it as it is), in blocks, with the rows still running gathered
+    at each block."""
+    lanes = count.shape[1]
+    stddev = torch.sqrt(count * prob * (1 - prob))
+    b = 1.15 + 2.53 * stddev
+    a = -0.0873 + 0.0248 * b + 0.01 * prob
+    c = count * prob + 0.5
+    v_r = 0.92 - 4.2 / b
+    ratio = prob / (1 - prob)
+    alpha = (2.83 + 5.1 / b) * stddev
+    m = torch.floor((count + 1) * prob)
+    # The terms of the bound that do not change between iterations.
+    m_term = (m + 0.5) * torch.log((m + 1) / (ratio * (count - m + 1)))
+    m_tails = (_stirling_approx_tail(m), _stirling_approx_tail(count - m))
+    k_out = torch.full_like(count, -1.0)
+    accepted = torch.zeros_like(count, dtype=torch.bool)
+    lane_idx = torch.arange(lanes, device=count.device)[None, :, None]
+    lo = 0
+    while rows.numel():
+        hi = lo + _BTRS_BLOCK
+        sub = loop.subkeys(lo, hi, rows)[:, None]      # [M, 1, B, 2, 2]
+        u = _lane_uniforms(sub[..., 0, :], lane_idx)   # [M, L, B]
+        v = _lane_uniforms(sub[..., 1, :], lane_idx)
+
+        def at(x):
+            return x[rows][..., None]
+
+        n_, a_, b_, m_, r_ = at(count), at(a), at(b), at(m), at(ratio)
+        u = u - 0.5
+        us = 0.5 - torch.abs(u)
+        accept1 = (us >= 0.07) & (v <= at(v_r))
+        k = torch.floor((2 * a_ / us + b_) * u + at(c))
+        reject = (k < 0) | (k > n_)
+        v = torch.log(v * at(alpha) / (a_ / (us * us) + b_))
+        ub = (at(m_term)
+              + (n_ + 1) * torch.log((n_ - m_ + 1) / (n_ - k + 1))
+              + (k + 0.5) * torch.log(r_ * (n_ - k + 1) / (k + 1))
+              + at(m_tails[0])
+              + at(m_tails[1])
+              - _stirling_approx_tail(k)
+              - _stirling_approx_tail(n_ - k))
+        accept = accept1 | (~reject & (v <= ub))
+        ko, acc = k_out[rows], accepted[rows]
+        for j in range(hi - lo):
+            upd = accept[..., j] & ~acc.all(dim=1, keepdim=True)
+            ko = torch.where(upd, k[..., j], ko)
+            acc = acc | upd
+        k_out[rows] = ko
+        accepted[rows] = acc
+        rows = rows[~acc.all(dim=1)]
+        lo = hi
+    return k_out
+
+
+def binomial(keys: torch.Tensor, count, prob,
+             loops: tuple | None = None) -> torch.Tensor:
+    """float32 Binomial(count, prob) draws (``jax.random.binomial`` of JAX
+    0.9, float32): keys ``[..., 2]``, and ``count`` and ``prob`` broadcast
+    together to ``[..., *shape]``, whose leading axes are the keys' (each
+    key draws ``shape``, as ``jax.random.binomial(key, n, p)`` draws the
+    broadcast of its ``n`` and ``p``).
+
+    Each key's draws follow JAX's for that key alone (un-vmapped, or one
+    row of a vmapped call): the inversion algorithm where ``count * q <=
+    10`` (``q = min(p, 1 - p)``), BTRS elsewhere, ``NaN`` for a NaN or
+    negative count or a NaN or negative ``q``, ``inf`` for an infinite
+    count, and ``count - draw`` where ``p >= 0.5``. The inversion loop
+    runs each lane until its geometric sum passes its count; the BTRS loop
+    stops each key at the first iteration after which all its lanes have
+    accepted, as JAX's ``while_loop`` does (an accepting iteration
+    overwrites the draw, so the stop must be exact). Both run in blocks of
+    iterations with one host sync per block.
+
+    ``loops``: the two loops' :class:`LoopKeys` over ``keys`` flattened
+    to ``[R, 2]`` (inversion ``num=2, carry=1``; BTRS ``num=3,
+    carry=0``), to share their splits with other calls; built here if not
+    given.
+    """
+    lead = tuple(keys.shape[:-1])
+    dev = keys.device
+    count = torch.as_tensor(count, dtype=torch.float32, device=dev)
+    prob = torch.as_tensor(prob, dtype=torch.float32, device=dev)
+    full = torch.broadcast_shapes(count.shape, prob.shape)
+    if full[:len(lead)] != lead:
+        raise ValueError(
+            f"count and prob must broadcast to [*{list(lead)}, ...] for "
+            f"keys of shape {tuple(keys.shape)} (got {tuple(full)})")
+    r, lanes = math.prod(lead), math.prod(full[len(lead):])
+    count = count.expand(full).reshape(r, lanes)
+    prob = prob.expand(full).reshape(r, lanes)
+    if loops is None:
+        flat = keys.reshape(r, 2)
+        loops = (LoopKeys(flat, 2, 1), LoopKeys(flat, 3, 0))
+
+    p_lt_half = prob < 0.5
+    q = torch.where(p_lt_half, prob, 1.0 - prob)
+    count_nan_or_neg = torch.isnan(count) | (count < 0.0)
+    count_inf = torch.isinf(count)
+    q_is_nan = torch.isnan(q)
+    q_l_0 = q < 0.0
+    q = torch.where(q_is_nan | q_l_0, 0.01, q)
+    use_inversion = count_nan_or_neg | (count * q <= 10.0)
+    count = torch.floor(count)
+    count_inv = torch.where(use_inversion, count, 0.0)
+    count_btrs = torch.where(use_inversion, 1e4, count)
+    q_btrs = torch.where(use_inversion, 0.5, q)
+
+    samples = _binomial_inversion(loops[0], count_inv, torch.log1p(-q),
+                                  use_inversion)
+    btrs_rows = torch.nonzero((~use_inversion).any(dim=1))[:, 0]
+    if btrs_rows.numel():
+        samples = torch.where(use_inversion, samples,
+                              _btrs(loops[1], count_btrs, q_btrs, btrs_rows))
+    invalid = q_l_0 | q_is_nan | count_nan_or_neg
+    samples = torch.where(invalid, math.nan, samples)
+    samples = torch.where(count_inf & ~invalid, math.inf, samples)
+    samples = torch.where(p_lt_half | count_nan_or_neg | q_is_nan | count_inf,
+                          samples, count - samples)
+    return samples.reshape(full)

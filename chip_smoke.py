@@ -63,13 +63,39 @@ Phases:
     (4096 chains, per-chain counts spread over 50..1000): K1's APF
     against the plain sweep (>= 99% of chains within 1e-3), K3 as the
     engine's APF day step and aux resample, and K4, bitwise; kernel and
-    plain ms.
+    plain ms;
+17. K1 with the sinusoidal functor (K1c) against the plain sweep at the
+    width of ``bench.py --config sinusoidal`` (4096 x 128, T = 20, theta
+    spread around (0.8, 1.0, 0.5)) and at the README's lane bound (4096 x
+    1024, counts 50..1000): bitwise, or >= 99% of chains within 1e-3;
+    kernel ms (CUDA events, 10 launches), plain ms, the bound;
+18. K1 with the LGSS-mv functor (K1b-mv) against the plain sweep at
+    phase 4's shape (512 x 1024, T = 20, SISR), contiguous and with
+    ``obs_times`` gaps; then the public ``lgss_mv_bpf_sweep`` on both,
+    counted, its contiguous mean within max(5 SE, 0.1) of
+    ``kalman_loglik_mv``;
+19. the port of ``bench.py --config sinusoidal``: theta0 = (0.8, 1.0,
+    0.5), log-space proposal sd (0.05, 0.1, 0.1), 4096 x 128 x 20; the
+    sweep path (``sinusoidal_sweep_pf_impl``) 64 steps with one K1c launch
+    each, the engine path 32 steps with 20 K3 launches each and no other
+    kernel; samples/s, acceptance strictly inside (0, 1);
+20. ``pmmh()`` on the README model at 4096 chains on both paths
+    (``pilot_init_params`` alternating (0.4, 0.4, 0.4) and (0.8, 0.8,
+    0.8), phase 11's control, m = 128, burn_in = 32): tuning s, sampling
+    samples/s, target_n and the lane bound, acceptance, posterior means,
+    ESS and R-hat; finite samples, target_n in [50, 1000];
+21. the engine on the rest of the zoo: ``pmmh()`` on ``sv_model()``
+    (logit phi) at 4096 chains, T = 50, m = 64, K3 launched; and 8 MH
+    steps of ``sir_model(transition="tauleap")`` at 4096 x 128 x 10 (the
+    port of ``bench.py --transition tauleap``), 10 K3 launches and no K4 a
+    step.
 
 Each kernel's bound is the larger of the bytes it must move over the
 card's memory rate and its lane instructions over the card's rate for
 their pipe (``bound``); K1's and K4's instructions are mostly the
 Gillespie events this run's data needs, counted by the plain versions
-(``EventTally``).
+(``EventTally``); K1c's and K1b-mv's are their functors' normals, ``sinf``
+and Gaussian weights, counted from the source.
 
 ``--profile`` adds a ``torch.profiler`` window over 8 steps of each path
 (and of each ``pmmh()`` path's phase 2, at its lane bound and counts)
@@ -81,6 +107,7 @@ nvidia-smi's, and the one before that the per-kernel JSON.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -104,6 +131,9 @@ RESAMPLE_SOURCE = "bayesssm_tpu_torch/csrc/resample.cu"
 RESAMPLE_REPLACES = "bayesssm_tpu/ops/resampling_pallas.py:60"
 GILLESPIE_SOURCE = "bayesssm_tpu_torch/csrc/gillespie.cu"
 GILLESPIE_REPLACES = "bayesssm_tpu/ops/gillespie_pallas.py:71"
+SIN_REPLACES = "bayesssm_tpu/models/sinusoidal.py:55"
+LGSS_MV_REPLACES = "bayesssm_tpu/ops/lgss_sweep_pallas.py:116"
+SIN_THETA0, SIN_PROP_SD = (0.8, 1.0, 0.5), (0.05, 0.1, 0.1)  # bench.py:46-47
 CHAINS, PARTICLES = 4096, 128
 AGREE_TOL = 1e-3       # |d loglike| per chain, kernel vs plain sweep
 AGREE_SHARE = 0.99     # share of chains that must agree within AGREE_TOL
@@ -134,6 +164,21 @@ ISSUE_PER_SM, ALU_PER_SM, XU_PER_SM = 128, 64, 16
 # rates (4), the IEEE reciprocal (~6, one MUFU), log1pf (~20, one
 # conversion) and the clock, event choice and predicated updates (~14).
 EVENT_INSTR = (72, 25, 4)
+# Lane instructions of the Gaussian functors (models.cuh, rng.cuh), as
+# above: a Box-Muller normal (two counter draws, logf ~20, sqrtf ~8, cosf
+# on its fast path ~25, five multiplies and adds); sinf on its fast path
+# (~25, a few integer ops of its quadrant); a Gaussian weight (subtract,
+# IEEE divide ~8, three multiplies and subtracts, logf ~20).
+NORMAL_INSTR = (90, 24, 5)
+SINF_INSTR = (25, 4, 0)
+GAUSS_WEIGHT_INSTR = (35, 0, 3)
+
+
+def instr(*parts):
+    """Sum of instruction tuples ``(all, alu, xu)``; a plain int counts
+    that many float instructions."""
+    tuples = [q if isinstance(q, tuple) else (q, 0, 0) for q in parts]
+    return tuple(sum(q[j] for q in tuples) for j in range(3))
 
 
 def stage_instr(n: int):
@@ -334,13 +379,41 @@ def sir_inputs(dev, algorithm="BPF", gaps=None):
     return y, op, y2
 
 
+def kernel_vs_plain(what, entry, op, words, ys, theta, alive, n,
+                    plain_context=None):
+    """K1 (``entry``) launched twice and its plain sweep run once on the
+    same inputs (the plain one inside ``plain_context``): fails unless the
+    launch count advanced by two and the kernel is deterministic, with
+    finite estimates, and agrees with the plain sweep (``compare``).
+    Returns ``(max_abs_err, bitwise, run)``; ``run(sweep)`` repeats the
+    call, for timing."""
+    from bayesssm_tpu_torch.ops import _build
+
+    def run(sweep):
+        return sweep(words, ys, theta, alive, max_particles=n)
+
+    before = _build.launches[entry]
+    ll_k, est_k = run(op)
+    ll_k2, est_k2 = run(op)
+    with plain_context or contextlib.nullcontext():
+        ll_p, est_p = run(op.sweep_reference)
+    torch.cuda.synchronize()
+    if _build.launches[entry] != before + 2:
+        raise AssertionError(f"{what}: {entry} launch count did not advance")
+    if not (torch.equal(ll_k, ll_k2) and torch.equal(est_k, est_k2)):
+        raise AssertionError(f"{what}: the kernel is not deterministic")
+    if not bool(torch.isfinite(est_k).all()):
+        raise AssertionError(f"{what}: state estimates are not finite")
+    bitwise = torch.equal(ll_k, ll_p) and torch.equal(est_k, est_p)
+    return compare(ll_k, ll_p, what), bitwise, run
+
+
 def sweep_check(dev, what, algorithm="BPF", gaps=None, reps=10,
                 n=PARTICLES, counts=None):
-    """K1 against the plain sweep at 4096 chains x ``n`` lanes x 10 days,
-    every lane alive or ``counts [C]`` of them: agreement, a second launch
-    bitwise equal, kernel and plain ms, and the bound from the events the
-    plain sweep counted."""
-    from bayesssm_tpu_torch.ops import _build
+    """K1 with the SIR functor against the plain sweep at 4096 chains x
+    ``n`` lanes x 10 days, every lane alive or ``counts [C]`` of them
+    (``kernel_vs_plain``); kernel and plain ms, and the bound from the
+    events the plain sweep counted."""
     from bayesssm_tpu_torch.ops.gillespie import EventTally
 
     _, op, y2 = sir_inputs(dev, algorithm, gaps)
@@ -350,26 +423,10 @@ def sweep_check(dev, what, algorithm="BPF", gaps=None, reps=10,
         base * np.exp(0.1 * rng.normal(size=(CHAINS, 2))).astype(np.float32),
         device=dev,
     )
-    words = words_for(CHAINS, 1, dev)
-    alive = n if counts is None else counts
-
-    def run(sweep):
-        return sweep(words, y2, theta, alive, max_particles=n)
-
-    before = _build.launches["bssm_sweep_sir"]
-    ll_k, est_k = run(op)
-    ll_k2, est_k2 = run(op)
-    with EventTally() as tally:
-        ll_p, est_p = run(op.sweep_reference)
-    torch.cuda.synchronize()
-    if _build.launches["bssm_sweep_sir"] != before + 2:
-        raise AssertionError(f"{what}: sweep launch count did not advance")
-    if not (torch.equal(ll_k, ll_k2) and torch.equal(est_k, est_k2)):
-        raise AssertionError(f"{what}: the kernel is not deterministic")
-    if not bool(torch.isfinite(est_k).all()):
-        raise AssertionError(f"{what}: state estimates are not finite")
-    bitwise = torch.equal(ll_k, ll_p) and torch.equal(est_k, est_p)
-    err = compare(ll_k, ll_p, what)
+    tally = EventTally()
+    err, bitwise, run = kernel_vs_plain(
+        what, "bssm_sweep_sir", op, words_for(CHAINS, 1, dev), y2, theta,
+        n if counts is None else counts, n, plain_context=tally)
     kernel_ms = cuda_ms(lambda: run(op), reps)
     plain_ms = cuda_ms(lambda: run(op.sweep_reference), 1)
     t = y2.shape[0]
@@ -414,7 +471,7 @@ def sir_sampler(dev):
             resolve_transforms(transform, names))
 
 
-def run_mh(dev, what, pf, steps, per_step):
+def run_mh(dev, what, pf, steps, per_step, sampler=sir_sampler):
     """One warm-up MH step, then ``steps`` timed steps with the launch
     counts set to 0 just before and read just after; ``per_step`` maps a
     kernel to the launches each step must make. Returns the counts, the
@@ -422,7 +479,7 @@ def run_mh(dev, what, pf, steps, per_step):
     from bayesssm_tpu_torch.ops import _build
     from bayesssm_tpu_torch.pmmh.driver import sample_chains
 
-    state, prior_fns, transforms = sir_sampler(dev)
+    state, prior_fns, transforms = sampler(dev)
     warm = sample_chains(pf, state, 2, 1, prior_fns, transforms)
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -434,9 +491,7 @@ def run_mh(dev, what, pf, steps, per_step):
     acc = float(out.acceptance_rate.mean())
     say(what, steps=steps, seconds=seconds,
         samples_per_s=CHAINS * steps / seconds, acceptance=acc,
-        k1_launches=counts["bssm_sweep_sir"],
-        k3_launches=counts["bssm_fused_resample"],
-        k4_launches=counts["bssm_gillespie"])
+        launches={k: v for k, v in counts.items() if v})
     for name in counts:
         if counts[name] != per_step.get(name, 0) * steps:
             raise AssertionError(f"{what}: {name} launched {counts[name]} "
@@ -477,7 +532,7 @@ def phase_main_path(dev):
                                   max_particles=PARTICLES)
 
     plain_rate(dev, "main", plain_pf, state, prior_fns, transforms, 4)
-    return counts["bssm_sweep_sir"], pf, state, prior_fns, transforms
+    return counts, pf, state, prior_fns, transforms
 
 
 def phase_fused_resample(dev):
@@ -788,13 +843,82 @@ def phase_lane_bound(dev):
     K3 as the engine's APF day step and aux resample, and K4, each against
     its plain version on the same inputs."""
     n = 1024
-    counts = torch.as_tensor(np.random.default_rng(16).permutation(
-        np.linspace(50, 1000, CHAINS).round()).astype(np.float32),
-        device=dev)
+    counts = spread_counts(dev)
     sweep_check(dev, "lane_bound_sir_apf", "APF", reps=3, n=n, counts=counts)
     k3_check(dev, "lane_bound_fused_resample", n, counts, aux=False)
     k3_check(dev, "lane_bound_fused_resample_aux", n, counts, aux=True)
     phase_gillespie(dev, "lane_bound_gillespie", n)
+
+
+def run_pmmh(what, y, fns, log_priors, init, transform, control, m,
+             burn_in, cut, pf_wrapper="bootstrap_filter", pf_impl=None,
+             **extra):
+    """The public ``pmmh()`` with pilot tuning at 4096 chains, the launch
+    counts set to 0 just before and read just after: prints the timings,
+    tuned counts, lane bound, acceptance, launches, and each parameter's
+    mean, ESS and R-hat; fails on samples that are not finite, an
+    acceptance outside (0, 1) or a count outside [50, 1000]. Returns the
+    counts and the output."""
+    import warnings
+
+    from bayesssm_tpu_torch import pmmh
+    from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.pmmh.driver import _particle_lane_bound
+
+    chains = CHAINS
+    _build.reset_launches()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # ESS/R-hat advice on short runs
+        out = pmmh(pf_wrapper, y, m, *fns, log_priors, init, burn_in,
+                   num_chains=chains, param_transform=transform, seed=1405,
+                   tune_control=control, pf_impl=pf_impl,
+                   print_summary=False, **extra)
+    counts = dict(_build.launches)
+    t = out.timings
+    tn = out.target_n
+    acc = float(out.acceptance_rate.mean())
+    say("pmmh", path=what, chains=chains, m=m, burn_in=burn_in,
+        pilot_m=control.pilot_m, pilot_reps=control.pilot_reps,
+        cut=cut,
+        tuning_s=t["tuning"], compile_s=t["compile"],
+        sampling_s=t["sampling"],
+        samples_per_s=chains * (m - 1) / t["sampling"],
+        target_n_min=int(tn.min()), target_n_median=float(np.median(tn)),
+        target_n_max=int(tn.max()),
+        lane_bound=_particle_lane_bound(int(tn.max())), acceptance=acc,
+        launches={k: v for k, v in counts.items() if v})
+    for q in out.param_names:
+        # A chain whose pilot never moved in its second half gets a zero
+        # proposal (zero pilot covariance, as in the JAX driver) and never
+        # moves: its zero variance makes ESS and R-hat NaN.
+        frozen = np.ptp(out.theta_chain[q], axis=1) == 0
+        say("pmmh", path=what, param=q, ess=out.diagnostics["ess"][q],
+            rhat=out.diagnostics["rhat"][q],
+            mean=float(out.theta_chain[q].mean()),
+            frozen_chains=int(frozen.sum()),
+            frozen_values=out.theta_chain[q][frozen, 0][:4].tolist(),
+            frozen_acceptance=out.acceptance_rate[frozen][:4].tolist())
+    samples = np.stack(list(out.theta_chain.values()))
+    if samples.shape != (len(log_priors), chains, m - burn_in):
+        raise AssertionError(f"pmmh ({what}) samples have shape "
+                             f"{samples.shape}")
+    if not np.isfinite(samples).all() or not 0.0 < acc < 1.0:
+        raise AssertionError(f"pmmh ({what}): samples not finite, or the "
+                             "acceptance rate is degenerate")
+    if tn.min() < 50 or tn.max() > 1000:
+        raise AssertionError(f"pmmh ({what}): target_n outside [50, 1000]")
+    return counts, out
+
+
+def expect_launches(what, counts, launched, not_launched=()):
+    """Fail unless every kernel of ``launched`` ran and none of
+    ``not_launched`` did (``not_launched="others"``: no other kernel)."""
+    if not_launched == "others":
+        not_launched = [k for k in counts if k not in launched]
+    bad = ([k for k in launched if counts[k] == 0]
+           + [k for k in not_launched if counts[k] != 0])
+    if bad:
+        raise AssertionError(f"{what}: launches {counts} (off: {bad})")
 
 
 def phase_pmmh(path, control, pf_wrapper="bootstrap_filter", m=PMMH_M,
@@ -804,9 +928,6 @@ def phase_pmmh(path, control, pf_wrapper="bootstrap_filter", m=PMMH_M,
     ``"engine"`` (the default filter on ``sir_model(transition=
     "gillespie_pallas")``, K4 and K3), for one of the three filters.
     Returns the kernel launch counts of the call and its output."""
-    import warnings
-
-    from bayesssm_tpu_torch import pmmh
     from bayesssm_tpu_torch.models.sir import (
         simulate_sir,
         sir_aux_log_likelihood_fn,
@@ -814,72 +935,250 @@ def phase_pmmh(path, control, pf_wrapper="bootstrap_filter", m=PMMH_M,
         sir_move_fn,
         sir_sweep_pf_impl,
     )
-    from bayesssm_tpu_torch.ops import _build
-    from bayesssm_tpu_torch.pmmh.driver import _particle_lane_bound
 
-    chains = CHAINS
     _, y = simulate_sir(seed=1405)
-    (init_fn, trans_fn, ll_fn), log_priors, transform = sir_model(
-        500, 70, transition="gillespie_pallas")
+    fns, log_priors, transform = sir_model(500, 70,
+                                           transition="gillespie_pallas")
     pf_impl = sir_sweep_pf_impl(500, 70) if path == "sweep" else None
-    _build.reset_launches()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")   # ESS/R-hat advice on short runs
-        out = pmmh(pf_wrapper, y, m, init_fn, trans_fn, ll_fn,
-                   log_priors, {"lam": 0.5, "gamma": 0.2}, burn_in,
-                   num_chains=chains,
-                   aux_log_likelihood_fn=sir_aux_log_likelihood_fn,
-                   move_fn=sir_move_fn(500), param_transform=transform,
-                   seed=1405, tune_control=control, pf_impl=pf_impl,
-                   print_summary=False)
-    counts = dict(_build.launches)
-    t = out.timings
-    tn = out.target_n
-    acc = float(out.acceptance_rate.mean())
-    path = f"{path}-{pf_wrapper}"
-    say("pmmh", path=path, chains=chains, m=m, burn_in=burn_in,
-        pilot_m=control.pilot_m, pilot_reps=control.pilot_reps,
-        cut="pilot_m 2000->200 and pilot_reps 100->20 (bench.py's)"
+    counts, out = run_pmmh(
+        f"{path}-{pf_wrapper}", y, fns, log_priors,
+        {"lam": 0.5, "gamma": 0.2}, transform, control, m, burn_in,
+        "pilot_m 2000->200 and pilot_reps 100->20 (bench.py's)"
         + ("" if m == PMMH_M else f"; m {PMMH_M}->{m}, burn_in "
            f"{PMMH_BURN_IN}->{burn_in}"),
-        tuning_s=t["tuning"], compile_s=t["compile"],
-        sampling_s=t["sampling"],
-        samples_per_s=chains * (m - 1) / t["sampling"],
-        target_n_min=int(tn.min()), target_n_median=float(np.median(tn)),
-        target_n_max=int(tn.max()),
-        lane_bound=_particle_lane_bound(int(tn.max())), acceptance=acc,
-        k1_launches=counts["bssm_sweep_sir"],
-        k3_launches=counts["bssm_fused_resample"],
-        k4_launches=counts["bssm_gillespie"])
-    for q in out.param_names:
-        # A chain whose pilot never moved in its second half gets a zero
-        # proposal (zero pilot covariance, as in the JAX driver) and never
-        # moves: its zero variance makes ESS and R-hat NaN.
-        frozen = np.ptp(out.theta_chain[q], axis=1) == 0
-        say("pmmh", path=path, param=q, ess=out.diagnostics["ess"][q],
-            rhat=out.diagnostics["rhat"][q],
-            mean=float(out.theta_chain[q].mean()),
-            frozen_chains=int(frozen.sum()),
-            frozen_values=out.theta_chain[q][frozen, 0][:4].tolist(),
-            frozen_acceptance=out.acceptance_rate[frozen][:4].tolist())
-    samples = np.stack(list(out.theta_chain.values()))
-    if samples.shape != (2, chains, m - burn_in):
-        raise AssertionError(f"pmmh ({path}) samples have shape "
-                             f"{samples.shape}")
-    if not np.isfinite(samples).all() or not 0.0 < acc < 1.0:
-        raise AssertionError(f"pmmh ({path}): samples not finite, or the "
-                             "acceptance rate is degenerate")
-    if tn.min() < 50 or tn.max() > 1000:
-        raise AssertionError(f"pmmh ({path}): target_n outside [50, 1000]")
-    k1 = counts["bssm_sweep_sir"]
-    k34 = (counts["bssm_fused_resample"], counts["bssm_gillespie"])
-    if pf_impl is not None and (k1 == 0 or any(k34)):
-        raise AssertionError(f"pmmh {path} launched K1 {k1} times and "
-                             f"K3/K4 {k34} times")
-    if pf_impl is None and (k1 != 0 or not all(k34)):
-        raise AssertionError(f"pmmh {path} launched K1 {k1} times and "
-                             f"K3/K4 {k34} times")
+        pf_wrapper=pf_wrapper, pf_impl=pf_impl,
+        aux_log_likelihood_fn=sir_aux_log_likelihood_fn,
+        move_fn=sir_move_fn(500))
+    k34 = ("bssm_fused_resample", "bssm_gillespie")
+    if pf_impl is not None:
+        expect_launches(f"pmmh {path}", counts, ["bssm_sweep_sir"], k34)
+    else:
+        expect_launches(f"pmmh {path}", counts, k34, ["bssm_sweep_sir"])
     return counts, out
+
+
+def functor_check(dev, what, entry, op, ys, theta, n, counts=None, reps=10,
+                  transitions=None, trans_instr=(0, 0, 0),
+                  weight_instr=GAUSS_WEIGHT_INSTR):
+    """K1 with an event-free functor (``entry``) against the plain sweep of
+    ``op`` on ``theta [C, P]`` and ``ys [T, d_y]`` on the card, every lane
+    alive or ``counts [C]`` of them: agreement, a second launch bitwise
+    equal (``kernel_vs_plain``), kernel ms (CUDA events over ``reps``
+    host-issued launches, and CUDA-graph replay, which the ``kernels`` line
+    takes: a launch takes the host about 0.2 ms to issue, near these
+    kernels' own time), plain ms and the bound: the init normal, the
+    transitions (``transitions`` a lane, ``trans_instr`` each) and a
+    Gaussian weight and a weight-and-selection stage a day."""
+    c, p = theta.shape
+    t, d_y = ys.shape[0], (1 if ys.ndim == 1 else ys.shape[1])
+    # The counts as a device tensor: a graph capture copies nothing from
+    # the host.
+    alive = (torch.full((c,), float(n), device=dev) if counts is None
+             else counts)
+    err, bitwise, run = kernel_vs_plain(what, entry, op, words_for(c, 23, dev),
+                                        ys, theta, alive, n)
+    events_ms = cuda_ms(lambda: run(op), reps)
+    kernel_ms = graph_ms(lambda: run(op), reps)
+    plain_ms = cuda_ms(lambda: run(op.sweep_reference), 1)
+    live = float(alive.sum())
+    bytes_moved = 4 * (4 * c + t * d_y + p * c) + 4 * (c + c * (t + 1))
+    bound_ms, bound_by = bound(
+        bytes_moved, (live, NORMAL_INSTR),
+        (live * (t if transitions is None else transitions), trans_instr),
+        (live * t, instr(weight_instr, stage_instr(n))))
+    say(what, shape=f"{c}x{n}x{t}", alive="all" if counts is None else
+        f"{int(counts.min())}..{int(counts.max())}", bitwise_equal=bitwise,
+        max_abs_err=err, kernel_ms=kernel_ms, kernel_ms_events=events_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        share_of_bound=bound_ms / kernel_ms)
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def spread_counts(dev, seed=16):
+    """4096 per-chain particle counts spread over 50..1000, shuffled."""
+    return torch.as_tensor(np.random.default_rng(seed).permutation(
+        np.linspace(50, 1000, CHAINS).round()).astype(np.float32),
+        device=dev)
+
+
+def phase_sinusoidal_kernel(dev):
+    """Phase 17: K1c at the bench width and at the README's lane bound."""
+    from bayesssm_tpu_torch.models.sinusoidal import (
+        _sinusoidal_op,
+        simulate_sinusoidal,
+    )
+
+    _, y = simulate_sinusoidal(1405, 20)
+    ys = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(17)
+    theta = torch.as_tensor(
+        (np.array(SIN_THETA0) * np.exp(0.1 * rng.normal(size=(CHAINS, 3))))
+        .astype(np.float32), device=dev)
+    op = _sinusoidal_op()
+    trans = instr(NORMAL_INSTR, SINF_INSTR, 4)
+    row = functor_check(dev, "sinusoidal", "bssm_sweep_sinusoidal", op, ys,
+                        theta, PARTICLES, trans_instr=trans)
+    functor_check(dev, "sinusoidal_readme_bound", "bssm_sweep_sinusoidal",
+                  op, ys, theta, 1024, counts=spread_counts(dev), reps=3,
+                  trans_instr=trans)
+    return row
+
+
+def phase_lgss_mv(dev):
+    """Phase 18: K1b-mv against its plain sweep, then the public
+    ``lgss_mv_bpf_sweep`` as a user calls it, counted, with the Kalman
+    check."""
+    from bayesssm_tpu_torch.models.lgss import simulate_lgss_mv
+    from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.ops.lgss_sweep import (
+        _lgss_mv_op,
+        lgss_mv_bpf_sweep,
+    )
+    from bayesssm_tpu_torch.utils.kalman import kalman_loglik_mv
+
+    a, sx, sy, c, n, t = 0.9, 0.6, (0.4, 0.5), 512, 1024, 20
+    _, y = simulate_lgss_mv(11, t_val=t, a=a, sigma_x=sx, sigma_y=0.4)
+    ys = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    theta = torch.tensor([[a, sx, *sy]], device=dev).expand(c, 4).contiguous()
+    gaps = GAPS * 2
+    rows = {}
+    for name, g in (("lgss_mv", None), ("lgss_mv_gapped", gaps)):
+        op = _lgss_mv_op(1.0, 0.5, 1.0, "stratified", True, False, g)
+        rows[name] = functor_check(
+            dev, name, "bssm_sweep_lgss_mv", op, ys, theta, n,
+            transitions=None if g is None else sum(g),
+            trans_instr=instr(NORMAL_INSTR, 3),
+            weight_instr=instr(GAUSS_WEIGHT_INSTR, GAUSS_WEIGHT_INSTR))
+    words = words_for(c, 18, dev)
+    _build.reset_launches()
+    ll, _ = lgss_mv_bpf_sweep(words, ys, n, a, sx, sy,
+                              resample_algorithm="SISR")
+    ll_g, _ = lgss_mv_bpf_sweep(words, ys, n, a, sx, sy,
+                                obs_times=np.cumsum(gaps),
+                                resample_algorithm="SISR")
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    expect_launches("lgss_mv path", counts, ["bssm_sweep_lgss_mv"], "others")
+    lls = ll.double().cpu().numpy()
+    truth = kalman_loglik_mv(y, a, (1.0, 0.5), sx, sy, p0=1.0)
+    se = lls.std() / np.sqrt(c)
+    say("lgss_mv", path_launches=counts["bssm_sweep_lgss_mv"],
+        kernel_mean=lls.mean(), kalman=truth, se=se,
+        gapped_finite=bool(torch.isfinite(ll_g).all()))
+    if not np.isfinite(lls).all() or abs(lls.mean() - truth) >= max(
+            5 * se, 0.1) or not bool(torch.isfinite(ll_g).all()):
+        raise AssertionError("LGSS-mv kernel mean is off the Kalman value")
+    return rows["lgss_mv"], counts
+
+
+def sin_sampler(dev):
+    """The README model's priors, ``bench.py --config sinusoidal``'s
+    log-space proposal (sd 0.05, 0.1, 0.1) and 4096 chains at theta0 =
+    (0.8, 1.0, 0.5)."""
+    from bayesssm_tpu_torch.models.sinusoidal import sinusoidal_model
+    from bayesssm_tpu_torch.pmmh.driver import init_chain_state
+    from bayesssm_tpu_torch.pmmh.transforms import resolve_transforms
+
+    _, log_priors, _ = sinusoidal_model()
+    names = list(log_priors)
+    factors = np.tile(np.diag(SIN_PROP_SD).astype(np.float32),
+                      (CHAINS, 1, 1))
+    state = init_chain_state(SIN_THETA0, factors, PARTICLES, 1405, dev)
+    return (state, [log_priors[q] for q in names],
+            resolve_transforms({q: "log" for q in names}, names))
+
+
+def model_pf(path, y, fns, names, sweep_factory):
+    """The filter ``sample_chains`` takes on one path at 128 lanes: the
+    whole sweep (``sweep_factory``) or the engine's bootstrap filter."""
+    from bayesssm_tpu_torch.pmmh.tuning import _make_pf_loglike
+
+    factory = sweep_factory if path == "sweep" else _make_pf_loglike
+    return factory(y, PARTICLES, names, (*fns, None, None), None, "BPF",
+                   "SISAR", "stratified", False, max_particles=PARTICLES)
+
+
+def phase_sinusoidal_mh(dev):
+    """Phase 19: ``bench.py --config sinusoidal`` on both paths."""
+    from bayesssm_tpu_torch.models.sinusoidal import (
+        simulate_sinusoidal,
+        sinusoidal_model,
+        sinusoidal_sweep_pf_impl,
+    )
+
+    _, y = simulate_sinusoidal(1405, 20)
+    fns, log_priors, _ = sinusoidal_model()
+    names = list(log_priors)
+    counts = []
+    for path, steps, per_step in (
+            ("sweep", 64, {"bssm_sweep_sinusoidal": 1}),
+            ("engine", 32, {"bssm_fused_resample": len(y)})):
+        pf = model_pf(path, y, fns, names, sinusoidal_sweep_pf_impl())
+        run = run_mh(dev, f"sinusoidal_{path}", pf, steps, per_step,
+                     sampler=sin_sampler)
+        counts.append(run[0])
+        if "--profile" in sys.argv[1:]:
+            profile_steps(f"sinusoidal-{path}", pf, *run[1:])
+    return counts
+
+
+def phase_readme_pmmh(control):
+    """Phase 20: the README's ``pmmh()`` call at 4096 chains on both
+    paths."""
+    from bayesssm_tpu_torch.models.sinusoidal import (
+        simulate_sinusoidal,
+        sinusoidal_model,
+        sinusoidal_sweep_pf_impl,
+    )
+
+    _, y = simulate_sinusoidal(1405, 20)
+    fns, log_priors, transform = sinusoidal_model()
+    init = [{"phi": 0.4, "sigma_x": 0.4, "sigma_y": 0.4},
+            {"phi": 0.8, "sigma_x": 0.8, "sigma_y": 0.8}] * (CHAINS // 2)
+    counts = []
+    for path in ("sweep", "engine"):
+        sweep = path == "sweep"
+        run_counts, _ = run_pmmh(
+            f"readme-{path}", y, fns, log_priors, init, transform, control,
+            FILTER_PMMH_M, FILTER_PMMH_BURN_IN,
+            "the README's call (tests/test_parity.py:59-91) with 2 chains "
+            f"->{CHAINS}, m 500->{FILTER_PMMH_M}, burn_in 50->"
+            f"{FILTER_PMMH_BURN_IN}, pilot_reps 50->20",
+            pf_impl=sinusoidal_sweep_pf_impl() if sweep else None)
+        expect_launches(f"readme {path}", run_counts,
+                        ["bssm_sweep_sinusoidal" if sweep
+                         else "bssm_fused_resample"], "others")
+        counts.append(run_counts)
+    return counts
+
+
+def phase_sv_tauleap(dev, control):
+    """Phase 21: ``pmmh()`` on stochastic volatility, and MH steps of
+    tau-leaping SIR, through the engine."""
+    from bayesssm_tpu_torch.models.sir import simulate_sir, sir_model
+    from bayesssm_tpu_torch.models.stochastic_volatility import (
+        simulate_sv,
+        sv_model,
+    )
+
+    _, y = simulate_sv(1405)
+    fns, log_priors, transform = sv_model()
+    sv_counts, out = run_pmmh(
+        "sv-engine", y, fns, log_priors,
+        {"phi": 0.95, "sigma": 0.3, "mu": -1.0}, transform, control, 64, 16,
+        "T = 50 (simulate_sv's default), m = 64, burn_in = 16")
+    expect_launches("pmmh sv", sv_counts, ["bssm_fused_resample"], "others")
+    phi = out.theta_chain["phi"]
+    if not ((phi > 0) & (phi < 1)).all():
+        raise AssertionError("pmmh sv: phi left (0, 1), so logit phi is "
+                             "not finite")
+    _, y_sir = simulate_sir(seed=1405)
+    tfns, lp, _ = sir_model(500, 70, transition="tauleap")
+    pf = model_pf("engine", y_sir, tfns, list(lp), None)
+    tau_counts = run_mh(dev, "tauleap_engine", pf, 8,
+                        {"bssm_fused_resample": len(y_sir)})[0]
+    return [sv_counts, tau_counts]
 
 
 def pmmh_phase2(dev, path, out):
@@ -974,15 +1273,19 @@ def main() -> int:
     for ln in ptx:
         print(f"[build] {ln}")
 
+    main_counts = []   # the launch counts of every path run
     select_row = phase_select(dev)
     phase_lgss(dev)
     sweep_row = phase_sir(dev)
-    sweep_launches, main_pf, sweep_state, prior_fns, transforms = (
+    run_counts, main_pf, sweep_state, prior_fns, transforms = (
         phase_main_path(dev))
+    main_counts.append(run_counts)
     k3_row = phase_fused_resample(dev)
     k4_row = phase_gillespie(dev)
     phase_engine_lgss(dev)
-    counts, eng_pf, eng_state, prior_fns, transforms = phase_engine_path(dev)
+    run_counts, eng_pf, eng_state, prior_fns, transforms = (
+        phase_engine_path(dev))
+    main_counts.append(run_counts)
     if "--profile" in sys.argv[1:]:
         profile_steps("sweep", main_pf, sweep_state, prior_fns, transforms)
         profile_steps("engine", eng_pf, eng_state, prior_fns, transforms)
@@ -991,7 +1294,6 @@ def main() -> int:
 
     control = default_tune_control(pilot_m=200, pilot_burn_in=50,
                                    pilot_reps=20)
-    main_counts = []
     for path in ("sweep", "engine"):
         run_counts, out = phase_pmmh(path, control)
         main_counts.append(run_counts)
@@ -1007,22 +1309,34 @@ def main() -> int:
                                           FILTER_PMMH_M,
                                           FILTER_PMMH_BURN_IN)[0])
     phase_lane_bound(dev)
-    for name in counts:
-        counts[name] += sum(c[name] for c in main_counts)
-    sweep_launches += sum(c["bssm_sweep_sir"] for c in main_counts)
+    sin_row = phase_sinusoidal_kernel(dev)
+    mv_row, run_counts = phase_lgss_mv(dev)
+    main_counts.append(run_counts)
+    main_counts += phase_sinusoidal_mh(dev)
+    main_counts += phase_readme_pmmh(control)
+    main_counts += phase_sv_tauleap(dev, control)
+    total = {name: sum(c[name] for c in main_counts)
+             for name in _build.launches}
 
     # select_index has no launch of its own on either path: it runs inside
     # every sweep and every fused-resample launch counted here.
-    select_launches = sweep_launches + counts["bssm_fused_resample"]
+    sweeps = ("bssm_sweep_sir", "bssm_sweep_sinusoidal",
+              "bssm_sweep_lgss_mv")
+    select_launches = (sum(total[k] for k in sweeps)
+                       + total["bssm_fused_resample"])
     say("select", main_path_launches_of_its_kernels=select_launches)
-    rows = (("bssm_sweep_sir", SWEEP_SOURCE, SWEEP_REPLACES, sweep_launches,
-             sweep_row),
+    rows = (("bssm_sweep_sir", SWEEP_SOURCE, SWEEP_REPLACES,
+             total["bssm_sweep_sir"], sweep_row),
+            ("bssm_sweep_sinusoidal", SWEEP_SOURCE, SIN_REPLACES,
+             total["bssm_sweep_sinusoidal"], sin_row),
+            ("bssm_sweep_lgss_mv", SWEEP_SOURCE, LGSS_MV_REPLACES,
+             total["bssm_sweep_lgss_mv"], mv_row),
             ("bssm_select", SELECT_SOURCE, SELECT_REPLACES, select_launches,
              select_row),
             ("bssm_fused_resample", RESAMPLE_SOURCE, RESAMPLE_REPLACES,
-             counts["bssm_fused_resample"], k3_row),
+             total["bssm_fused_resample"], k3_row),
             ("bssm_gillespie", GILLESPIE_SOURCE, GILLESPIE_REPLACES,
-             counts["bssm_gillespie"], k4_row))
+             total["bssm_gillespie"], k4_row))
     print(json.dumps({"kernels": [
         {"name": name, "route": ROUTE, "source": source, "replaces": replaces,
          "launches": launches, **row}

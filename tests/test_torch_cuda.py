@@ -345,3 +345,85 @@ def test_fused_resample_with_an_aux_column_bitwise(dev, n, low):
         method="stratified", always_resample=True)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [128, 1024])
+@pytest.mark.parametrize("algo,method", [("SISAR", "stratified"),
+                                         ("SISR", "systematic"),
+                                         ("SIS", "stratified")])
+def test_sinusoidal_kernel_bitwise(dev, algo, method, n):
+    """K1 with the ``SinusoidalModel`` functor against the plain sweep,
+    bit for bit (``sinf`` as ``torch.sin`` on the card computes it), with
+    per-chain counts below the lane bound."""
+    from bayesssm_tpu_torch.models.sinusoidal import (
+        _sinusoidal_op,
+        simulate_sinusoidal,
+    )
+
+    _, y = simulate_sinusoidal(1405, 20)
+    op = _sinusoidal_op(method, algo)
+    c = 64
+    gen = torch.Generator(device=dev).manual_seed(21)
+    theta = (torch.tensor([[0.8, 1.0, 0.5]], device=dev)
+             * torch.exp(0.1 * torch.randn((c, 3), device=dev,
+                                           generator=gen))).contiguous()
+    counts = torch.linspace(n // 2, n, c, device=dev).round()
+    words = _words(c, 22, dev)
+    before = _build.launches["bssm_sweep_sinusoidal"]
+    ll, est = op(words, y, theta, counts, max_particles=n)
+    assert _build.launches["bssm_sweep_sinusoidal"] == before + 1
+    ll_p, est_p = op.sweep_reference(words, y, theta, counts, max_particles=n)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ll).all()
+    assert torch.equal(ll, ll_p) and torch.equal(est, est_p)
+
+
+@pytest.mark.parametrize("n", [128, 1024])
+@pytest.mark.parametrize("gaps", [None, (1, 2, 1, 1, 3, 1, 1, 2, 1, 1)])
+def test_lgss_mv_kernel_bitwise(dev, gaps, n):
+    """K1 with the ``LgssMvModel`` functor (two observation columns, four
+    parameters) against the plain sweep, bit for bit, contiguous and with
+    the gap loop."""
+    from bayesssm_tpu_torch.models.lgss import simulate_lgss_mv
+    from bayesssm_tpu_torch.ops.lgss_sweep import _lgss_mv_op
+
+    _, y = simulate_lgss_mv(5, t_val=10)
+    op = _lgss_mv_op(1.0, 0.5, 1.0, "stratified", False, False, gaps)
+    c = 64
+    theta = torch.tensor([[0.9, 0.6, 0.4, 0.5]], device=dev).expand(
+        c, 4).contiguous()
+    counts = torch.linspace(n // 2, n, c, device=dev).round()
+    words = _words(c, 23, dev)
+    before = _build.launches["bssm_sweep_lgss_mv"]
+    ll, est = op(words, y, theta, counts, max_particles=n)
+    assert _build.launches["bssm_sweep_lgss_mv"] == before + 1
+    ll_p, est_p = op.sweep_reference(words, y, theta, counts, max_particles=n)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ll).all()
+    assert torch.equal(ll, ll_p) and torch.equal(est, est_p)
+
+
+def test_sinusoidal_engine_takes_k3_every_day(dev):
+    """The README model through the engine on the card: the fused weight
+    step (K3) every day, no other kernel, and the chains of its plain
+    version on the CPU."""
+    from bayesssm_tpu_torch.filters import bootstrap_filter
+    from bayesssm_tpu_torch.models.sinusoidal import (
+        simulate_sinusoidal,
+        sinusoidal_model,
+    )
+
+    _, y = simulate_sinusoidal(1405, 8)
+    fns, _, _ = sinusoidal_model()
+    words = _words(32, 24, dev)
+    theta = dict(phi=0.8, sigma_x=1.0, sigma_y=0.5)
+    _build.reset_launches()
+    res = bootstrap_filter(words, y, 128, *fns, theta=theta,
+                           return_particles=False)
+    assert _build.launches["bssm_fused_resample"] == 8
+    assert sum(_build.launches.values()) == 8
+    cpu = bootstrap_filter(words.cpu(), y, 128, *fns, theta=theta,
+                           use_fused="interpret-inkernel",
+                           return_particles=False)
+    np.testing.assert_allclose(res.loglike.cpu().numpy(),
+                               cpu.loglike.numpy(), rtol=0, atol=1e-3)

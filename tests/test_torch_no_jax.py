@@ -85,6 +85,51 @@ def test_port_runs_with_jax_blocked():
         assert out.theta_chain["a"].shape == (2, 3)
         assert np.isfinite(out.theta_chain["a"]).all()
         assert list(out.timings) == ["tuning", "compile", "sampling"]
+        # The model zoo: the README model on both paths, SV, LGSS-mv with
+        # its Kalman value, tau-leaping and its binomials.
+        from bayesssm_tpu_torch.models.sinusoidal import (
+            simulate_sinusoidal, sinusoidal_model, sinusoidal_sweep_pf_impl)
+        from bayesssm_tpu_torch.models.stochastic_volatility import (
+            simulate_sv, sv_model)
+        from bayesssm_tpu_torch.models.lgss import (
+            lgss_mv_model, simulate_lgss_mv)
+        from bayesssm_tpu_torch.ops.lgss_sweep import (
+            lgss_mv_bpf_sweep, lgss_sweep_pf_impl)
+        from bayesssm_tpu_torch.utils.kalman import kalman_loglik_mv
+        _, ys = simulate_sinusoidal(1405, 5)
+        sfns, slp, str_ = sinusoidal_model()
+        for pf_impl in (None, sinusoidal_sweep_pf_impl()):
+            out = bt.pmmh("bootstrap_filter", ys, 3, *sfns, slp,
+                          {"phi": 0.8, "sigma_x": 1.0, "sigma_y": 0.5}, 1,
+                          num_chains=2, param_transform=str_, seed=1,
+                          tune_control=bt.default_tune_control(
+                              pilot_m=3, pilot_reps=2, pilot_n=20),
+                          pf_impl=pf_impl, print_summary=False,
+                          device="cpu")
+            assert np.isfinite(out.theta_chain["phi"]).all()
+        _, yv = simulate_sv(1405, 6)
+        vfns, _, _ = sv_model()
+        res = bt.bootstrap_filter(keys, yv, 16, *vfns,
+                                  theta=dict(phi=0.9, sigma=0.3, mu=-1.0))
+        assert np.isfinite(res.loglike.numpy()).all()
+        _, ym = simulate_lgss_mv(3, 5)
+        mfns, _, _ = lgss_mv_model()
+        res = bt.bootstrap_filter(keys, ym, 16, *mfns,
+                                  theta=dict(a=0.9, sigma_x=0.6,
+                                             sigma_y=0.4))
+        ll, _ = lgss_mv_bpf_sweep(keys, ym, 128, 0.9, 0.6, (0.4, 0.4))
+        assert np.isfinite(ll.numpy()).all()
+        assert np.isfinite(kalman_loglik_mv(ym, 0.9, (1.0, 0.5), 0.6,
+                                            (0.4, 0.4)))
+        assert callable(lgss_sweep_pf_impl())
+        tfns, _, _ = bt.sir_model(100, 10, transition="tauleap", substeps=3)
+        _, yt = simulate_sir(seed=7, n_total=100, init_infected=10, t_max=3)
+        res = bt.bootstrap_filter(keys, yt, 16, *tfns,
+                                  theta=dict(lam=0.4, gamma=0.25))
+        assert np.isfinite(res.loglike.numpy()).all()
+        draws = threefry.binomial(keys, torch.full((3, 8), 50.0),
+                                  torch.full((3, 8), 0.4))
+        assert draws.shape == (3, 8)
         assert not any(m.split(".")[0] in ("jax", "jaxlib")
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

@@ -4,8 +4,10 @@ the JAX package, per key.
 Each JAX reference is an UN-vmapped ``interpret=True`` call: one chain per
 program, whose software stream the port reproduces (a vmapped call uses
 the block layout and draws another stream). The port runs all keys of a
-case as one batch. Tolerances: LGSS 1e-4 in loglike and state estimates
-(f32 ulps of the transcendental functions); SIR 1e-3 in loglike (f32
+case as one batch. Tolerances: LGSS and LGSS-mv 1e-4 in loglike and state
+estimates (f32 ulps of the transcendental functions); the sinusoidal
+model 1e-3 (XLA's and PyTorch's f32 ``sin`` may differ by an ulp, which
+the transition carries on over T days); SIR 1e-3 in loglike (f32
 ``lgamma(y + 1)`` differs by a few ulps between the libraries, over T
 days).
 """
@@ -16,16 +18,35 @@ import numpy as np
 import pytest
 import torch
 
+from bayesssm_tpu.models.sinusoidal import (
+    sinusoidal_sweep_pf_impl as j_sin_pf_impl,
+)
 from bayesssm_tpu.models.sir import sir_builder_pf_impl as j_sir_pf_impl
-from bayesssm_tpu.ops.lgss_sweep_pallas import lgss_bpf_sweep as j_lgss
+from bayesssm_tpu.ops.lgss_sweep_pallas import (
+    lgss_bpf_sweep as j_lgss,
+    lgss_mv_bpf_sweep as j_lgss_mv,
+    lgss_sweep_pf_impl as j_lgss_pf_impl,
+)
 from bayesssm_tpu.ops.sir_sweep_pallas import sir_filter_sweep as j_sir
-from bayesssm_tpu_torch.models.lgss import simulate_lgss
+from bayesssm_tpu_torch.models.lgss import simulate_lgss, simulate_lgss_mv
+from bayesssm_tpu_torch.models.sinusoidal import (
+    simulate_sinusoidal,
+    sinusoidal_sweep_pf_impl,
+)
 from bayesssm_tpu_torch.models.sir import simulate_sir, sir_sweep_pf_impl
 from bayesssm_tpu_torch.ops import _build
-from bayesssm_tpu_torch.ops.lgss_sweep import lgss_bpf_sweep
+from bayesssm_tpu_torch.ops.lgss_sweep import (
+    _lgss_mv_op,
+    lgss_bpf_sweep,
+    lgss_mv_bpf_sweep,
+    lgss_sweep_pf_impl,
+)
 from bayesssm_tpu_torch.ops.sir_sweep import sir_bpf_sweep, sir_filter_sweep
-from bayesssm_tpu_torch.ops.sweep_builder import build_sweep_op
-from bayesssm_tpu_torch.utils.kalman import kalman_loglik
+from bayesssm_tpu_torch.ops.sweep_builder import (
+    build_sweep_op,
+    build_sweep_pf_impl,
+)
+from bayesssm_tpu_torch.utils.kalman import kalman_loglik, kalman_loglik_mv
 
 torch.set_num_threads(1)
 
@@ -310,3 +331,200 @@ def test_sir_obs_times_match_jax_per_key(sir_y, algo):
     assert torch.isfinite(ll).all()
     np.testing.assert_allclose(ll.numpy(), jll, rtol=0, atol=1e-3)
     np.testing.assert_allclose(est.numpy(), jest, rtol=0, atol=1e-3)
+
+
+SIN_THETA = np.array([0.8, 1.0, 0.5], np.float32)
+SIN_ARGS = (["phi", "sigma_x", "sigma_y"], None, None, "BPF")
+
+
+@pytest.fixture(scope="module")
+def sin_y():
+    _, y = simulate_sinusoidal(1405, 12)
+    return y.astype(np.float32)
+
+
+@pytest.mark.parametrize("method,alive", [
+    ("stratified", 128), ("systematic", 128), ("stratified", 100),
+    ("systematic", 77),
+])
+def test_sinusoidal_matches_jax_per_key(sin_y, method, alive):
+    """The README model's plain sweep (K1c's twin) against un-vmapped JAX
+    ``sinusoidal_sweep_pf_impl(interpret=True)``, full and masked lanes."""
+    args = (sin_y, alive, *SIN_ARGS, "SISAR", method, False)
+    j_pf = j_sin_pf_impl(interpret=True)(*args, max_particles=N)
+    kd = _key_words(70, 3)
+    jll, jest = _jax_per_key(lambda k: j_pf(k, jnp.asarray(SIN_THETA)), kd)
+    pf = sinusoidal_sweep_pf_impl()(*args, max_particles=N)
+    ll, est = pf(_torch_words(kd), torch.as_tensor(SIN_THETA).expand(3, 3))
+    assert ll.shape == (3,) and est.shape == (3, len(sin_y) + 1)
+    np.testing.assert_allclose(ll.numpy(), jll, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(est.numpy(), jest, rtol=0, atol=1e-3)
+
+
+def test_sinusoidal_factory_follows_param_names(sin_y):
+    """Three parameters in any order reach the functor as (phi, sigma_x,
+    sigma_y); the factory keeps build_sweep_pf_impl's checks."""
+    words = _torch_words(_key_words(80, 3))
+    theta = torch.tensor([[0.8, 1.0, 0.5], [0.6, 0.7, 0.9], [0.9, 1.3, 0.3]])
+    kw = dict(y=sin_y, num_particles=N, model_fns=None, obs_times=None,
+              algorithm="BPF", resample_algorithm="SISAR",
+              resample_fn="stratified", carry_weights=False)
+    factory = sinusoidal_sweep_pf_impl()
+    ll, _ = factory(param_names=["phi", "sigma_x", "sigma_y"], **kw)(
+        words, theta)
+    perm = ["sigma_y", "phi", "sigma_x"]
+    ll2, _ = factory(param_names=perm, **kw)(words, theta[:, [2, 0, 1]])
+    assert torch.equal(ll, ll2) and torch.isfinite(ll).all()
+    with pytest.raises(ValueError, match="aux_log_weight_fn"):
+        factory(param_names=perm, **{**kw, "algorithm": "APF"})
+    with pytest.raises(ValueError, match="sweep built for parameters"):
+        factory(param_names=["phi", "phi", "sigma_y"], **kw)
+
+
+@pytest.fixture(scope="module")
+def mv_y():
+    _, y = simulate_lgss_mv(5, t_val=10, a=A, sigma_x=SX, sigma_y=SY)
+    return y.astype(np.float32)
+
+
+MV_OBS_TIMES = [1, 3, 4, 5, 8, 9, 10, 12, 13, 14]
+
+
+@pytest.mark.parametrize("algo,obs_times,alive", [
+    ("SISAR", None, 128), ("SISR", None, 100), ("SISAR", MV_OBS_TIMES, 128),
+    ("SISR", MV_OBS_TIMES, 90),
+])
+def test_lgss_mv_matches_jax_per_key(mv_y, algo, obs_times, alive):
+    """K1b-mv's twin (two observation columns, four parameters, the gap
+    loop) against un-vmapped JAX ``lgss_mv_bpf_sweep(interpret=True)``."""
+    kd = _key_words(90, 3)
+    jll, jest = _jax_per_key(
+        lambda k: j_lgss_mv(k, jnp.asarray(mv_y), float(alive), A, SX,
+                            (SY, 0.5), obs_times=obs_times, max_particles=N,
+                            resample_algorithm=algo, interpret=True), kd)
+    ll, est = lgss_mv_bpf_sweep(_torch_words(kd), mv_y, float(alive), A, SX,
+                                (SY, 0.5), obs_times=obs_times,
+                                max_particles=N, resample_algorithm=algo)
+    np.testing.assert_allclose(ll.numpy(), jll, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(est.numpy(), jest, rtol=0, atol=1e-4)
+
+
+def _predictive_loglik_mv(y, a, c_vec, sigma_x, sigma_y_vec, p0=1.0):
+    """Sum over days of log N(y_t; 0, c c' P_t + R) with the prior
+    variance P_t of x_t: the Kalman recursion without its update step,
+    which is what fresh-weight SIS estimates (its particles are never
+    resampled, so each day's weights see the prior marginal of x_t)."""
+    cv = np.asarray(c_vec, np.float64)
+    r = np.diag(np.asarray(sigma_y_vec, np.float64) ** 2)
+    p, ll = p0 ** 2, 0.0
+    for obs in np.asarray(y, np.float64):
+        p = a * a * p + sigma_x ** 2
+        s = np.outer(cv, cv) * p + r
+        _, logdet = np.linalg.slogdet(2.0 * np.pi * s)
+        ll += -0.5 * (logdet + obs @ np.linalg.solve(s, obs))
+    return ll
+
+
+def test_lgss_mv_sis_mean_matches_its_exact_value(mv_y):
+    """SIS, which the JAX vector sweep refuses: the mean over 256 chains
+    within max(5 SE, 0.1) of its exact value. Fresh-weight SIS (the
+    reference's) never resamples and never carries weights, so it
+    estimates the product of the prior predictive densities, not the
+    filter's likelihood: the Kalman predict-only recursion, not
+    ``kalman_loglik_mv`` (4 nats above it on these data)."""
+    c = 256
+    rng = np.random.default_rng(1)
+    words = torch.as_tensor(
+        rng.integers(0, 2**32, (c, 2), dtype=np.uint64).astype(np.int64))
+    ll, _ = lgss_mv_bpf_sweep(words, mv_y, N, A, SX, (SY, 0.5),
+                              resample_algorithm="SIS")
+    lls = ll.double().numpy()
+    assert np.isfinite(lls).all()
+    truth = _predictive_loglik_mv(mv_y, A, (1.0, 0.5), SX, (SY, 0.5))
+    se = lls.std() / np.sqrt(c)
+    assert abs(lls.mean() - truth) < max(5 * se, 0.1), (lls.mean(), truth)
+    assert kalman_loglik_mv(mv_y, A, (1.0, 0.5), SX, (SY, 0.5)) > truth + 1
+    with pytest.raises(ValueError, match="SIS, SISR or SISAR"):
+        lgss_mv_bpf_sweep(words, mv_y, N, A, SX, (SY, 0.5),
+                          resample_algorithm="bogus")
+
+
+def test_lgss_mv_sisr_mean_matches_kalman(mv_y):
+    """SISR, the filter's likelihood: within max(5 SE, 0.1) of
+    ``kalman_loglik_mv``."""
+    c = 128
+    rng = np.random.default_rng(2)
+    words = torch.as_tensor(
+        rng.integers(0, 2**32, (c, 2), dtype=np.uint64).astype(np.int64))
+    ll, _ = lgss_mv_bpf_sweep(words, mv_y, 512, A, SX, (SY, 0.5),
+                              resample_algorithm="SISR")
+    lls = ll.double().numpy()
+    truth = kalman_loglik_mv(mv_y, A, (1.0, 0.5), SX, (SY, 0.5))
+    se = lls.std() / np.sqrt(c)
+    assert abs(lls.mean() - truth) < max(5 * se, 0.1), (lls.mean(), truth)
+
+
+def test_lgss_mv_four_parameters_follow_param_names(mv_y):
+    """A ``pf_impl`` over the LGSS-mv callbacks: four parameters in any
+    order reach the functor as (a, sigma_x, sigma_y1, sigma_y2)."""
+    op = _lgss_mv_op(1.0, 0.5, 1.0, "stratified", False, False, None)
+    names = ("a", "sigma_x", "sigma_y1", "sigma_y2")
+    factory = build_sweep_pf_impl(1, op.init_fn, op.transition_fn,
+                                  op.log_weight_fn, names, num_obs_cols=2,
+                                  kernel=op.kernel)
+    args = (mv_y, N)
+    tail = (None, None, "BPF", "SISAR", "stratified", False)
+    words = _torch_words(_key_words(95, 3))
+    theta = torch.tensor([[0.9, 0.6, 0.4, 0.5], [0.5, 0.3, 0.7, 0.2],
+                          [0.7, 0.9, 0.3, 0.8]])
+    ll, _ = factory(*args, list(names), *tail)(words, theta)
+    perm = [3, 1, 0, 2]
+    ll2, _ = factory(*args, [names[j] for j in perm], *tail)(
+        words, theta[:, perm])
+    want, _ = lgss_mv_bpf_sweep(words, mv_y, N, theta[:, 0], theta[:, 1],
+                                (theta[:, 2], theta[:, 3]))
+    assert torch.equal(ll, ll2) and torch.equal(ll, want)
+
+
+LGSS_PF_ERRORS = {
+    "apf": (dict(algorithm="APF"), "BPF only"),
+    "obs_times": (dict(obs_times=[1, 2, 3]), "contiguous"),
+    "carry": (dict(carry_weights=True), "fresh-weight"),
+    "names": (dict(param_names=["a", "sigma_x", "b"]), "expects parameters"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LGSS_PF_ERRORS))
+def test_lgss_sweep_pf_impl_messages_match_jax(lgss_y, case):
+    kw = dict(y=lgss_y, num_particles=N, param_names=["a", "sigma_x",
+                                                      "sigma_y"],
+              model_fns=None, obs_times=None, algorithm="BPF",
+              resample_algorithm="SISAR", resample_fn="stratified",
+              carry_weights=False)
+    extra, match = LGSS_PF_ERRORS[case]
+    kw.update(extra)
+    with pytest.raises(ValueError, match=match) as got:
+        lgss_sweep_pf_impl()(**kw)
+    with pytest.raises(ValueError) as want:
+        j_lgss_pf_impl(interpret=True)(**kw)
+    assert str(got.value) == str(want.value)
+
+
+def test_lgss_sweep_pf_impl_runs_the_scalar_sweep(lgss_y):
+    """``lgss_sweep_pf_impl`` in any parameter order runs
+    ``lgss_bpf_sweep`` on the caller's theta columns; the JAX factory
+    agrees per key."""
+    kd = _key_words(97, 2)
+    words = _torch_words(kd)
+    theta = torch.tensor([[A, SX, SY], [0.5, 0.9, 0.3]])
+    args = (lgss_y, N, ["sigma_y", "a", "sigma_x"], None, None, "BPF",
+            "SISR", "systematic", False)
+    ll, est = lgss_sweep_pf_impl()(*args)(words, theta[:, [2, 0, 1]])
+    want, _ = lgss_bpf_sweep(words, lgss_y, N, theta[:, 0], theta[:, 1],
+                             theta[:, 2], resample_fn="systematic",
+                             resample_algorithm="SISR")
+    assert torch.equal(ll, want) and est.shape == (2, len(lgss_y) + 1)
+    j_pf = j_lgss_pf_impl(interpret=True)(*args)
+    jll, _ = _jax_per_key(lambda k: j_pf(k, jnp.asarray(
+        np.array([SY, A, SX], np.float32))), kd[:1])
+    np.testing.assert_allclose(ll.numpy()[:1], jll, rtol=0, atol=1e-4)

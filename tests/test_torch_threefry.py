@@ -4,7 +4,11 @@
 bit-exact operations and must agree exactly. ``normal`` goes through
 ``erfinv``, whose float32 polynomial the port evaluates with PyTorch's
 ``log1p`` and without fused multiply-adds: it agrees to 1e-6 (a few ulps
-of values up to about 5).
+of values up to about 5). ``binomial`` computes ``ceil(log(u) /
+log1p(-q))`` and BTRS's bound with float32 logs, and XLA's CPU ``log`` is
+its own polynomial, so a draw could land one integer off; at least 99% of
+each key's draws must match (all 256,000 matched in a run of 16 keys x
+4000 draws on each branch), and the moments must be Binomial(n, p)'s.
 """
 
 import jax
@@ -124,3 +128,88 @@ def test_key_words_from_numpy_and_errors():
         words.numpy())
     with pytest.raises(ValueError, match="trailing axis of 2"):
         threefry.as_key_words(np.zeros((3, 4), np.uint32))
+
+
+def _binomial_jax(kd, count, prob):
+    f = jax.jit(lambda w, n, q: jax.random.binomial(
+        jax.random.wrap_key_data(w), n, q))
+    return np.stack([np.asarray(f(jnp.asarray(w), jnp.asarray(count[i]),
+                                  jnp.asarray(prob[i])))
+                     for i, w in enumerate(kd)])
+
+
+BINOMIAL_CASES = {
+    # count * q <= 10: inversion; p above one half draws count - k.
+    "inversion": (0, 400, 0.0, 0.025),
+    "inversion_p_above_half": (0, 400, 0.975, 1.0),
+    # count * q > 10: BTRS (transformed rejection).
+    "btrs": (50, 5000, 0.05, 0.5),
+    "btrs_p_above_half": (50, 5000, 0.5, 0.95),
+    "both": (0, 600, 0.0, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BINOMIAL_CASES))
+def test_binomial_matches_jax_per_key(case):
+    lo, hi, p_lo, p_hi = BINOMIAL_CASES[case]
+    rng = np.random.default_rng(len(case))
+    kd = _key_data(range(5))
+    count = rng.integers(lo, hi, (5, 500)).astype(np.float32)
+    prob = rng.uniform(p_lo, p_hi, (5, 500)).astype(np.float32)
+    if case == "both":
+        # NaN and negative counts, NaN, negative and > 1 probabilities, an
+        # infinite count, p at 0 and 1.
+        count[:, :4] = np.nan
+        count[:, 4:8] = -3.0
+        count[:, 8] = np.inf
+        prob[:, 9:12] = np.nan
+        prob[:, 12:14] = -0.2
+        prob[:, 14:16] = 1.3
+        prob[:, 16], prob[:, 17] = 0.0, 1.0
+    want = _binomial_jax(kd, count, prob)
+    got = threefry.binomial(threefry.as_key_words(kd), torch.as_tensor(count),
+                            torch.as_tensor(prob))
+    assert got.dtype == torch.float32 and got.shape == count.shape
+    got = got.numpy()
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    share = same.mean(axis=1)
+    assert (share >= 0.99).all(), share
+    if case == "both":
+        assert np.isnan(got[:, :8]).all() and np.isnan(got[:, 9:16]).all()
+        assert np.isinf(got[:, 8]).all()
+        assert (got[:, 16] == 0).all()
+        np.testing.assert_array_equal(got[:, 17], count[:, 17])
+
+
+@pytest.mark.parametrize("n,p", [(30.0, 0.1), (40.0, 0.85), (400.0, 0.3),
+                                 (2000.0, 0.6)])
+def test_binomial_moments(n, p):
+    """Mean and variance of 64 keys x 2000 draws within five standard
+    errors of Binomial(n, p)'s, on both algorithms and both sides of one
+    half."""
+    kd = threefry.split(threefry.key(7)[None], 64)[0]
+    draws = threefry.binomial(kd, torch.full((64, 2000), n),
+                              torch.full((64, 2000), p)).double().numpy()
+    assert (draws == np.floor(draws)).all()
+    assert ((draws >= 0) & (draws <= n)).all()
+    m = draws.size
+    mean, var = n * p, n * p * (1 - p)
+    assert abs(draws.mean() - mean) < 5 * np.sqrt(var / m)
+    # The sample variance's standard error, to first order.
+    assert abs(draws.var() - var) < 5 * var * np.sqrt(2.0 / m) + 1e-9
+
+
+def test_binomial_loops_shared_across_calls():
+    """A view of one ``LoopKeys`` chain over many rows draws what each
+    row's own keys draw (the tau-leaping day shares its splits so)."""
+    kd = threefry.split(threefry.key(3)[None], 6)[0]            # [6, 2]
+    count = torch.tensor([[5.0, 300.0, 40.0]]).expand(2, 3)
+    prob = torch.tensor([[0.3, 0.2, 0.9]]).expand(2, 3)
+    loops = (threefry.LoopKeys(kd, 2, 1), threefry.LoopKeys(kd, 3, 0))
+    for rows in ([0, 1], [4, 2]):
+        row_map = torch.tensor(rows)
+        shared = threefry.binomial(
+            kd[row_map], count, prob,
+            loops=tuple(loop.rows(row_map) for loop in loops))
+        alone = threefry.binomial(kd[row_map], count, prob)
+        assert torch.equal(shared, alone)
