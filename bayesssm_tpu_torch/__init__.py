@@ -4,8 +4,10 @@ Runs PMMH on an NVIDIA H100 for the JAX package's model zoo (stochastic
 SIR with the exact Gillespie day or tau-leaping, the README's sinusoidal
 model, stochastic volatility, the linear-Gaussian SSM with a scalar or a
 vector observation) along two paths: the batched whole-sweep filter
-(``ops/sweep_builder.py``, CUDA kernel ``csrc/sweep.cu`` with one functor
-per model: SIR, LGSS, LGSS-mv, sinusoidal), and the generic
+(``ops/sweep_builder.py``, CUDA kernel ``csrc/sweep.cuh`` with one functor
+per model: SIR, LGSS, LGSS-mv, sinusoidal, and for a user's own ``torch``
+callbacks a functor generated from them, ``ops/sweep_codegen.py``), and
+the generic
 particle-filter engine
 (``filters/core.py``; ``bootstrap_filter``, ``auxiliary_filter``,
 ``resample_move_filter``) with its per-day kernels, the

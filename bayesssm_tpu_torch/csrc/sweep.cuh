@@ -1,0 +1,272 @@
+// Whole-sweep particle filter for Hopper (sm_90a): bootstrap (BPF),
+// auxiliary (APF) and resample-move (RMPF) days, with an optional gap loop
+// for irregular observation times. The kernel template and its launcher;
+// sweep.cu instantiates it with the functors of models.cuh, and each
+// functor generated from a user's callbacks (ops/sweep_codegen.py) is
+// instantiated in a translation unit of its own (ops/_build.py).
+//
+// Replaces bayesssm_tpu/ops/sweep_builder.py::_make_kernel (the Pallas TPU
+// kernel of the SIR PMMH main path) together with the selection it traces
+// from bayesssm_tpu/ops/merge_select.py. The plain PyTorch version is
+// SweepOp.sweep_reference in bayesssm_tpu_torch/ops/sweep_builder.py.
+//
+// A day: the transition (gaps[t] times at times[t] - gaps[t] + s when the
+// gap arrays are given); for APF the aux stage -- masked aux log-weights,
+// the degenerate kill, normalised aux weights, one position draw, the CDF
+// and selection, the ancestors' aux weights recomputed from the selected
+// state (a copy is exact, so this equals a gather and keeps the shared
+// memory at (2 + D) * N floats), the second transition (quirk Q2) and
+// lw - aux_anc; then the weight step and selection; for RMPF the move.
+// The chain's draw counter moves exactly as the plain sweep's does.
+//
+// Layout: one thread block per chain (grid = C), one thread per particle
+// lane (blockDim = max_particles, a power of two in 128..1024). A thread
+// keeps its particle's state in registers for all T days; y is read-only
+// in global memory; shared memory holds the reduction scratch, the CDF and
+// the ancestor-copy buffer ((2 + D) * N floats, 16 KB at N = 1024, D = 2).
+// Lanes >= alive stay inert but reach every barrier.
+//
+// What bounds it on this card: the SIR event loop (per event two hashes,
+// one log1pf and one divide per lane, plus the chain's tail of events:
+// the block iterates until its LAST lane is done) and the barriers of the
+// block reductions and the CDF scan (about 2 log2 N per day for the scan
+// and log2 N per reduction). One chain per block pays the event tail per
+// chain, where the TPU kernel paid it once per block of 256 chains; on the
+// other hand no chain waits for a slower neighbour. Reductions use a fixed
+// halving tree so the plain version (tree_sum) reproduces their bits.
+//
+// A functor may set kHasPack (with DP packed columns, pack(st, pk) and
+// unpack(pk, st)): selection then routes the DP packed columns, unpacks
+// and re-masks, as the JAX builder's pack_fn/unpack_fn do.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+#include <type_traits>
+
+#include "models.cuh"
+#include "reduce.cuh"
+#include "rng.cuh"
+#include "select.cuh"
+
+namespace bssm {
+
+constexpr float kNeg = -1e30f;
+constexpr float kDegenerate = -1e8f;
+constexpr float kSentinel = 1.5f;
+enum Mode { kAdaptive = 0, kAlways = 1, kNever = 2 };
+enum Algorithm { kBpf = 0, kApf = 1, kRmpf = 2 };
+
+// The columns selection routes: the packed ones when the functor packs.
+template <class M, class = void>
+struct Route {
+  static constexpr bool kPack = false;
+  static constexpr int kCols = M::D;
+};
+template <class M>
+struct Route<M, std::void_t<decltype(M::kHasPack)>> {
+  static constexpr bool kPack = M::kHasPack;
+  static constexpr int kCols = M::kHasPack ? M::DP : M::D;
+};
+
+// One position per lane from one uniform block: stratified, or systematic
+// with lane 0's draw for every slot; masked lanes get 1.0.
+__device__ __forceinline__ float draw_position(Rng& rng, float lane_f,
+                                               float alive, bool live,
+                                               int systematic,
+                                               float* u_lane0) {
+  float u = rng.uniform();
+  if (systematic) {
+    if (threadIdx.x == 0) *u_lane0 = u;
+    __syncthreads();
+    u = *u_lane0;
+    __syncthreads();
+  }
+  return live ? (lane_f + u) / alive : 1.0f;
+}
+
+// Ancestor selection of the block's state: slot `lane` takes the state of
+// m = #{j : cdf_ext[j] <= pos} through shared memory; masked lanes get 0.
+template <int D>
+__device__ __forceinline__ void select_state(float w, float pos, float st[D],
+                                             float* cdf, float* buf, int lane,
+                                             int n, float lane_f, float alive,
+                                             bool live) {
+  block_cdf(w, cdf, lane, n);
+  if (lane_f >= alive - 1.0f) cdf[lane] = kSentinel;
+#pragma unroll
+  for (int j = 0; j < D; ++j) buf[j * n + lane] = st[j];
+  __syncthreads();
+  const int m = select_index(cdf, n, pos);
+#pragma unroll
+  for (int j = 0; j < D; ++j) st[j] = live ? buf[j * n + m] : 0.0f;
+  __syncthreads();
+}
+
+// select_state on the model's state, through pack/unpack when it packs.
+template <class M>
+__device__ __forceinline__ void select_model(const M& model, float w,
+                                             float pos, float st[M::D],
+                                             float* cdf, float* buf,
+                                             int lane, int n, float lane_f,
+                                             float alive, bool live) {
+  if constexpr (Route<M>::kPack) {
+    float pk[M::DP];
+    model.pack(st, pk);
+    select_state<M::DP>(w, pos, pk, cdf, buf, lane, n, lane_f, alive, live);
+    float un[M::D];
+    model.unpack(pk, un);
+#pragma unroll
+    for (int j = 0; j < M::D; ++j) st[j] = live ? un[j] : 0.0f;
+  } else {
+    select_state<M::D>(w, pos, st, cdf, buf, lane, n, lane_f, alive, live);
+  }
+}
+
+template <class M>
+__global__ void sweep_kernel(const int* __restrict__ seeds,
+                             const float* __restrict__ y,
+                             const float* __restrict__ theta,
+                             const float* __restrict__ alive_v,
+                             const float* __restrict__ thr_v,
+                             float* __restrict__ ll_out,
+                             float* __restrict__ est_out,
+                             const int* __restrict__ gaps,
+                             const int* __restrict__ times, int T, int mode,
+                             int systematic, int algorithm, M model) {
+  extern __shared__ float smem[];
+  __shared__ float u_lane0;
+  const int n = blockDim.x;
+  const int lane = threadIdx.x;
+  const int c = blockIdx.x;
+  float* red = smem;
+  float* cdf = smem + n;
+  float* buf = smem + 2 * n;
+
+  const float alive = alive_v[c];
+  const float thr = thr_v[c];
+  const float lane_f = (float)lane;
+  const bool live = lane_f < alive;
+  const float w_res = live ? 1.0f / alive : 0.0f;
+
+  Rng rng;
+  rng.key = lane_key((uint32_t)seeds[2 * c], (uint32_t)seeds[2 * c + 1],
+                     (uint32_t)lane);
+  rng.ctr = 0;
+  float th[M::P];
+#pragma unroll
+  for (int j = 0; j < M::P; ++j) th[j] = theta[c * M::P + j];
+
+  float st[M::D];
+  model.init(rng, st, th);
+  float* est = est_out + (size_t)c * (T + 1) * M::D;
+#pragma unroll
+  for (int j = 0; j < M::D; ++j) {
+    const float e = block_sum(w_res * st[j], red);
+    if (lane == 0) est[j] = e;
+  }
+
+  float ll = 0.0f;
+  bool dead = false;
+  for (int t = 0; t < T; ++t) {
+    const float* y_t = y + t * M::DY;
+    if (gaps != nullptr) {
+      const int gap = gaps[t];
+      for (int s = 0; s < gap; ++s) {
+        model.transition(rng, st, th, times[t] - gap + s);
+      }
+    } else {
+      model.transition(rng, st, th, t);
+    }
+    float lw;
+    if constexpr (M::kHasAux) {
+      if (algorithm == kApf) {
+        const float alw = live ? model.aux_log_weight(st, th, y_t) : kNeg;
+        const float mxa = block_max(alw, red);
+        dead = dead || (mxa < kDegenerate);
+        const float sha = expf(alw - mxa);
+        const float wa = sha / block_sum(sha, red);
+        const float pos_a = draw_position(rng, lane_f, alive, live,
+                                          systematic, &u_lane0);
+        select_model<M>(model, wa, pos_a, st, cdf, buf, lane, n, lane_f,
+                        alive, live);
+        const float aux_anc =
+            nan_max(live ? model.aux_log_weight(st, th, y_t) : kNeg, kNeg);
+        model.transition(rng, st, th, gaps != nullptr ? times[t] - 1 : t);
+        lw = live ? model.log_weight(st, th, y_t) - aux_anc : kNeg;
+      } else {
+        lw = live ? model.log_weight(st, th, y_t) : kNeg;
+      }
+    } else {
+      lw = live ? model.log_weight(st, th, y_t) : kNeg;
+    }
+    const float mx = block_max(lw, red);
+    dead = dead || (mx < kDegenerate);
+    const float sh = expf(lw - mx);
+    const float ssum = block_sum(sh, red);
+    const float w = sh / ssum;
+    const float ess = 1.0f / block_sum(w * w, red);
+    ll = ll + mx + logf(ssum) - logf(alive);
+
+    float est_w = w;
+    if (mode != kNever) {
+      // Every SISR/SISAR day draws its position block, resampled or not.
+      const float pos = draw_position(rng, lane_f, alive, live, systematic,
+                                      &u_lane0);
+      if (mode == kAlways || ess < thr) {  // uniform across the block
+        select_model<M>(model, w, pos, st, cdf, buf, lane, n, lane_f, alive,
+                        live);
+        est_w = w_res;
+      }
+    }
+    if constexpr (M::kHasMove) {
+      if (algorithm == kRmpf) {
+        // Every lane advances the counter; masked lanes keep their state.
+        float moved[M::D];
+#pragma unroll
+        for (int j = 0; j < M::D; ++j) moved[j] = st[j];
+        model.move(rng, moved, th, y_t);
+        if (live) {
+#pragma unroll
+          for (int j = 0; j < M::D; ++j) st[j] = moved[j];
+        }
+      }
+    }
+    const float live_f = dead ? 0.0f : 1.0f;
+#pragma unroll
+    for (int j = 0; j < M::D; ++j) {
+      const float e = block_sum(est_w * st[j], red) * live_f;
+      if (lane == 0) est[(t + 1) * M::D + j] = e;
+    }
+  }
+  if (lane == 0) ll_out[c] = dead ? -INFINITY : ll;
+}
+
+template <class M>
+int launch_sweep(M model, const int* seeds, const float* y,
+                 const float* theta, const float* alive, const float* thr,
+                 float* ll, float* est, const int* gaps, const int* times,
+                 int C, int N, int T, int mode, int systematic, int algorithm,
+                 cudaStream_t stream) {
+  if (C < 1 || N < 128 || N > 1024 || (N & (N - 1)) || T < 0 ||
+      mode < kAdaptive || mode > kNever ||
+      (gaps == nullptr) != (times == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // A day the functor cannot run: APF without an aux weight, RMPF without
+  // a move.
+  if (algorithm < kBpf || algorithm > kRmpf ||
+      (algorithm == kApf && !M::kHasAux) ||
+      (algorithm == kRmpf && !M::kHasMove)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)(2 + Route<M>::kCols) * N * sizeof(float);
+  sweep_kernel<M><<<C, N, smem, stream>>>(seeds, y, theta, alive, thr, ll,
+                                          est, gaps, times, T, mode,
+                                          systematic, algorithm, model);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bssm

@@ -7,9 +7,11 @@
 
 Priors: phi ~ Beta(9, 1), sigma ~ Exp(2), mu ~ N(0, 2). Transforms: phi
 ``logit`` (proposed in logit space, quirk Q1 of ``pmmh/transforms.py``),
-sigma ``log``, mu ``identity``. The JAX package has no whole-sweep kernel
-for it, so it runs through the generic engine only (its weight step is K3
-on the card).
+sigma ``log``, mu ``identity``. The JAX package ships no whole-sweep
+kernel for it: the engine runs it (its weight step is K3 on the card), and
+so does the whole-sweep kernel with the callbacks a user writes for it
+(``examples/torch_custom_sweep_kernel.py``, a functor generated from
+them on the card).
 """
 
 from __future__ import annotations

@@ -11,7 +11,13 @@ lies on one CUDA device.
 Entries: ``bssm_sweep_sir``, ``bssm_sweep_lgss``, ``bssm_sweep_lgss_mv``
 and ``bssm_sweep_sinusoidal`` (K1 with each model functor, ``sweep.cu``),
 ``bssm_select`` (K2 alone), ``bssm_fused_resample`` (K3, ``resample.cu``)
-and ``bssm_gillespie`` (K4, ``gillespie.cu``).
+and ``bssm_gillespie`` (K4, ``gillespie.cu``). A functor generated from a
+user's sweep callbacks (``ops/sweep_codegen.py``) is compiled on its own
+by :func:`build_generated` into ``gen_<hash>.so`` with one entry,
+``bssm_sweep_gen_<hash>``, the kernel template of ``csrc/sweep.cuh``
+instantiated with it; its launches count under ``bssm_sweep_generated``.
+``launch_probe`` builds and runs a generated elementwise kernel the same
+way (the card's check that each traced op rounds as PyTorch's does).
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no ``--use_fast_math`` (the Gillespie
 step relies on IEEE inf/NaN staying behind its ``fire`` gate, and the
@@ -37,8 +43,9 @@ import time
 import torch
 
 __all__ = ["NVCC_FLAGS", "launches", "reset_launches", "library_loaded",
-           "load_library", "build_info", "launch_sweep", "launch_select",
-           "launch_fused_resample", "launch_gillespie"]
+           "load_library", "build_info", "generated_entry", "build_generated",
+           "launch_probe", "launch_sweep", "launch_select", "launch_fused_resample",
+           "launch_gillespie"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -74,9 +81,33 @@ _ENTRIES = {
     "bssm_gillespie": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I, _P],
 }
 
-launches = {name: 0 for name in _ENTRIES}
+# Launches of every generated functor count under one key.
+GENERATED = "bssm_sweep_generated"
+launches = {name: 0 for name in [*_ENTRIES, GENERATED, "bssm_op_probe"]}
 build_info: dict = {}
 _lib = None
+_generated: dict = {}  # unit hash -> loaded library
+
+# The translation unit of a generated functor: the functor source (a struct
+# ``GenModel`` with the models.cuh interface) and one entry with the shared
+# sweep arguments and no model constants.
+_GEN_TEMPLATE = """// Generated by bayesssm_tpu_torch/ops/sweep_codegen.py: do not edit.
+#include "sweep.cuh"
+
+namespace bssm {{
+{functor}
+}}  // namespace bssm
+
+extern "C" int {entry}(const int* seeds, const float* y, const float* theta,
+                      const float* alive, const float* thr, float* ll,
+                      float* est, const int* gaps, const int* times, int C,
+                      int N, int T, int mode, int systematic, int algorithm,
+                      void* stream) {{
+  return bssm::launch_sweep(bssm::GenModel{{}}, seeds, y, theta, alive, thr,
+                            ll, est, gaps, times, C, N, T, mode, systematic,
+                            algorithm, (cudaStream_t)stream);
+}}
+"""
 
 
 def reset_launches() -> None:
@@ -94,14 +125,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _compile(sources, out: pathlib.Path) -> str:
+def _compile(sources, out: pathlib.Path, extra=()) -> str:
     """One ``nvcc -c`` per source, all at once, then one link."""
     nvcc = _nvcc()
     procs = []
     for src in sources:
         obj = out.with_name(f"{out.stem}.{src.stem}.{os.getpid()}.o")
         procs.append((obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = "", []
     for obj, proc in procs:
@@ -159,6 +190,77 @@ def load_library():
     return lib
 
 
+def _unit_digest(text: str) -> str:
+    """Hex sha256 over the flags, a generated unit's text and the headers
+    it may include."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(_CSRC.glob("*.cuh")):
+        digest.update(src.name.encode() + src.read_bytes())
+    digest.update(text.encode())
+    return digest.hexdigest()[:16]
+
+
+def generated_entry(functor: str) -> str:
+    """The entry name ``bssm_sweep_gen_<hash>`` of a generated functor's
+    source: the hash covers the source, the flags, the template and its
+    headers, so the same callbacks always name the same library."""
+    return f"bssm_sweep_gen_{_unit_digest(_GEN_TEMPLATE + functor)}"
+
+
+def _build_unit(text: str, tag: str):
+    """Compile (once per ``tag``) and load one generated translation unit,
+    ``build/bayesssm_tpu_torch/gen_<tag>.cu``, against ``csrc/``. A failed
+    ``nvcc`` raises with its log."""
+    if tag in _generated:
+        return _generated[tag]
+    out = _BUILD_DIR / f"gen_{tag}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not out.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = _BUILD_DIR / f"gen_{tag}.cu"
+        tmp = src.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_text(text)
+        os.replace(tmp, src)
+        log = _compile([src], out, extra=("-I", str(_CSRC)))
+    lib = ctypes.CDLL(str(out))
+    build_info.setdefault("generated", {})[tag] = dict(
+        path=str(out), seconds=time.perf_counter() - t0, ptxas=log)
+    _generated[tag] = lib
+    return lib
+
+
+def build_generated(functor: str):
+    """Compile (once per hash) and load the sweep entry of a generated
+    functor: ``(lib, entry)``."""
+    entry = generated_entry(functor)
+    lib = _build_unit(_GEN_TEMPLATE.format(functor=functor, entry=entry),
+                      entry.rsplit("_", 1)[1])
+    fn = getattr(lib, entry)
+    fn.argtypes = [*_SWEEP_SHARED, _P]
+    fn.restype = _I
+    return lib, entry
+
+
+def launch_probe(kernel_src: str, name: str, x, n_out: int):
+    """Launch a generated elementwise kernel (``sweep_codegen.probe``):
+    ``extern "C" int <name>(const float* in, float* out, int rows, void*
+    stream)`` over ``x [R, K]`` on a CUDA device; returns ``[R, n_out]``.
+    Counted under ``bssm_op_probe``."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError("launch_probe takes CUDA tensors only")
+    _check({"inputs": (x, torch.float32)}, dev)
+    lib = _build_unit(kernel_src, _unit_digest(kernel_src))
+    fn = getattr(lib, name)
+    fn.argtypes = [_P, _P, _I, _P]
+    fn.restype = _I
+    out = torch.empty((x.shape[0], n_out), dtype=torch.float32, device=dev)
+    _raise_on(fn(x.data_ptr(), out.data_ptr(), x.shape[0], _stream(dev)), name)
+    launches["bssm_op_probe"] += 1
+    return out
+
+
 def _check(tensors: dict, device: torch.device) -> None:
     for name, (t, dtype) in tensors.items():
         if t.device != device:
@@ -186,7 +288,8 @@ def _seeds_i32(words: torch.Tensor) -> torch.Tensor:
 
 def launch_sweep(kernel, words, ys, theta, alive, thr, n, *, d, mode,
                  systematic, algorithm=0, gap_table=None):
-    """Launch ``kernel.entry`` for ``C`` chains of ``n`` lanes; ``algorithm``
+    """Launch ``kernel.entry`` (or, for a ``kernel.source``, the generated
+    functor's entry) for ``C`` chains of ``n`` lanes; ``algorithm``
     0/1/2 is BPF/APF/RMPF, ``gap_table`` an int32 ``[2, T]`` tensor on the
     launch's device holding the per-observation transition counts and
     their running sum (``None`` for one transition a day).
@@ -213,15 +316,18 @@ def launch_sweep(kernel, words, ys, theta, alive, thr, n, *, d, mode,
         gap_ptrs = (gap_table[0].data_ptr(), gap_table[1].data_ptr())
     ll = torch.empty(c, dtype=torch.float32, device=dev)
     est = torch.empty((c, t + 1, d), dtype=torch.float32, device=dev)
-    lib = load_library()
-    rc = getattr(lib, kernel.entry)(
+    if kernel.source is None:
+        lib, entry, key = load_library(), kernel.entry, kernel.entry
+    else:
+        (lib, entry), key = build_generated(kernel.source), GENERATED
+    rc = getattr(lib, entry)(
         seeds.data_ptr(), ys.data_ptr(), theta.data_ptr(), alive.data_ptr(),
         thr.data_ptr(), ll.data_ptr(), est.data_ptr(), *gap_ptrs, c, n, t,
         int(mode), int(bool(systematic)), int(algorithm), *kernel.consts,
         _stream(dev),
     )
-    _raise_on(rc, kernel.entry)
-    launches[kernel.entry] += 1
+    _raise_on(rc, entry)
+    launches[key] += 1
     return ll, est
 
 

@@ -28,6 +28,12 @@ Two optional callbacks select the other filters:
 * ``move_fn(rng, cols, theta, y_t)`` — the RMPF day: after the day's
   selection the move rejuvenates the state; masked lanes keep theirs.
 
+``pack_fn(cols)`` / ``unpack_fn(packed)`` (given together) route fewer
+columns through selection, as the JAX builder's do: selection moves
+``pack_fn(cols)``, then ``unpack_fn`` restores the state and masked lanes
+are zeroed again. Copies are exact, so packing changes no result when
+``unpack_fn(pack_fn(cols))`` is exact.
+
 ``obs_gaps`` (one transition count per observation) turns the day's
 transition into a loop of ``gaps[t]`` transitions at the absolute times
 ``times[t] - gaps[t] + s``, ``times = cumsum(gaps)``; the APF's second
@@ -39,13 +45,19 @@ Two implementations stand behind one op:
   tensors that runs the callbacks. Sums over particles are a fixed
   pairwise tree (:func:`tree_sum`), the order of the kernel's shared-memory
   reduction, so the kernel can be held to it chain by chain.
-* the CUDA kernel ``csrc/sweep.cu`` (one thread block per chain), for
-  models that name a :class:`KernelModel`: SIR, LGSS, LGSS with two
-  observation columns, and the sinusoidal model, each a functor in
-  ``csrc/models.cuh``.
+* the CUDA kernel ``csrc/sweep.cuh`` (one thread block per chain) with a
+  model functor: for a :class:`KernelModel` named by the model (SIR, LGSS,
+  LGSS with two observation columns, the sinusoidal model), its
+  hand-written functor in ``csrc/models.cuh``; for any other callbacks, a
+  functor generated from them (``ops/sweep_codegen.py``: traced once per
+  op at its first CUDA call, compiled by ``nvcc`` once per distinct
+  model, launches counted under ``bssm_sweep_generated``).
 
 Calling the op routes by device: CPU tensors run the plain version, CUDA
-tensors launch the kernel or raise.
+tensors launch the kernel. Callbacks the tracer cannot take (indexing,
+reductions, Python control flow on values, the counter-threading ``rng``
+methods) raise ``ValueError`` naming the operation on CUDA tensors; the
+plain sweep on CPU tensors runs them as before.
 """
 
 from __future__ import annotations
@@ -56,7 +68,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bayesssm_tpu_torch.ops import _build
+from bayesssm_tpu_torch.ops import _build, sweep_codegen
 from bayesssm_tpu_torch.ops.merge_select import select_cols_reference
 from bayesssm_tpu_torch.ops.rng import SweepRng, lane_keys
 
@@ -82,10 +94,13 @@ class KernelModel(NamedTuple):
     """The CUDA functor that runs a model's callbacks in the kernel:
     ``entry`` is the C entry point (``bssm_sweep_sir``, ``bssm_sweep_lgss``,
     ``bssm_sweep_lgss_mv``, ``bssm_sweep_sinusoidal``) and ``consts`` its
-    model constants, in the C signature's order."""
+    model constants, in the C signature's order. A functor generated from
+    traced callbacks has ``source`` (its C++), no constants, and the entry
+    ``_build.generated_entry(source)``."""
 
     entry: str
-    consts: tuple
+    consts: tuple = ()
+    source: str | None = None
 
 
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
@@ -154,7 +169,8 @@ class SweepOp:
 
     def __init__(self, num_state_cols, init_fn, transition_fn,
                  log_weight_fn, num_params, method, mode, num_obs_cols,
-                 kernel, aux_log_weight_fn=None, move_fn=None, gaps=None):
+                 kernel, aux_log_weight_fn=None, move_fn=None, gaps=None,
+                 pack_fn=None, unpack_fn=None):
         self.d = int(num_state_cols)
         self.p = int(num_params)
         self.d_y = int(num_obs_cols)
@@ -163,6 +179,8 @@ class SweepOp:
         self.log_weight_fn = log_weight_fn
         self.aux_log_weight_fn = aux_log_weight_fn
         self.move_fn = move_fn
+        self.pack_fn = pack_fn
+        self.unpack_fn = unpack_fn
         self.method = method
         self.mode = mode
         self.kernel = kernel
@@ -172,6 +190,7 @@ class SweepOp:
         self._gap_tables = {}  # device -> int32 [2, T] (gaps, times)
         self.algorithm = ("APF" if aux_log_weight_fn is not None
                           else "RMPF" if move_fn is not None else "BPF")
+        self._generated = None  # the traced functor, made at first use
 
     def _prepare(self, seed_words, y, theta, num_particles, max_particles,
                  threshold):
@@ -229,19 +248,31 @@ class SweepOp:
         if args[2].device.type == "cpu":
             ll, est = self._reference(*args)
         else:
-            if self.kernel is None:
-                raise NotImplementedError(
-                    "this sweep's callbacks have no CUDA kernel; only "
-                    "models with a KernelModel (SIR, LGSS, LGSS-mv, "
-                    "sinusoidal) run on the card"
-                )
             ll, est = _build.launch_sweep(
-                self.kernel, *args, d=self.d, mode=_MODE[self.mode],
+                self.kernel or self.generated_kernel(), *args, d=self.d,
+                mode=_MODE[self.mode],
                 systematic=self.method == "systematic",
                 algorithm=_ALGORITHM[self.algorithm],
                 gap_table=self._gap_table(args[2].device),
             )
         return ll, self._shape_est(est)
+
+    def trace(self) -> sweep_codegen.TracedModel:
+        """The callbacks traced into the IR of ``ops/sweep_codegen.py``
+        (raises ``ValueError`` naming what does not trace)."""
+        return sweep_codegen.trace_model(
+            self.d, self.p, self.d_y, self.init_fn, self.transition_fn,
+            self.log_weight_fn, self.aux_log_weight_fn, self.move_fn,
+            self.pack_fn, self.unpack_fn)
+
+    def generated_kernel(self) -> KernelModel:
+        """The functor generated from the callbacks, traced once per op;
+        ``nvcc`` runs at its first launch."""
+        if self._generated is None:
+            source = sweep_codegen.emit_functor(self.trace())
+            self._generated = KernelModel(_build.generated_entry(source),
+                                          (), source)
+        return self._generated
 
     def _gap_table(self, dev):
         """The kernel's ``[2, T]`` int32 gaps and times on ``dev``, copied
@@ -283,8 +314,14 @@ class SweepOp:
             return torch.where(alive_mask, lw, _NEG)
 
         def select(w, pos, cols):
-            res = select_cols_reference(cdf_ext(w, lane_f, alive), pos, cols)
-            return tuple(torch.where(alive_mask, r, 0.0) for r in res)
+            route = cols if self.pack_fn is None else self.pack_fn(cols)
+            res = select_cols_reference(cdf_ext(w, lane_f, alive), pos,
+                                        route)
+            res = tuple(torch.where(alive_mask, r, 0.0) for r in res)
+            if self.unpack_fn is not None:
+                res = tuple(torch.where(alive_mask, o, 0.0)
+                            for o in self.unpack_fn(res))
+            return res
 
         cols = tuple(self.init_fn(rng, th))
         if len(cols) != self.d:
@@ -359,22 +396,33 @@ def build_sweep_op(
     resample_fn: str = "stratified",
     always_resample: bool = False,
     never_resample: bool = False,
+    interpret: bool = False,
     num_obs_cols: int = 1,
+    pack_fn=None,
+    unpack_fn=None,
+    num_packed_cols: int = 1,
     obs_gaps=None,
     kernel: KernelModel | None = None,
 ) -> SweepOp:
     """Build the batched whole-sweep op (module docstring).
 
-    Same argument checks as the JAX sweep builder (``sweep_builder.py:580-597``).
-    ``aux_log_weight_fn`` makes every day an APF day and ``move_fn`` an
-    RMPF day (give at most one); ``obs_gaps`` of all ones is the
-    contiguous grid.
+    Takes every argument of the JAX ``build_sweep_op``, with its checks
+    (``sweep_builder.py:580-597``). ``aux_log_weight_fn`` makes every day
+    an APF day and ``move_fn`` an RMPF day (give at most one); ``obs_gaps``
+    of all ones is the contiguous grid. ``interpret`` is accepted and
+    ignored (the device picks the implementation), and so is
+    ``num_packed_cols`` (the JAX kernel's VMEM budget; the count is
+    ``pack_fn``'s). ``kernel`` names a hand-written functor; without it the
+    card runs a functor generated from the callbacks.
     """
+    del interpret, num_packed_cols
     if resample_fn not in ("stratified", "systematic"):
         raise ValueError(
             "the sweep builder resamples by inverse-CDF selection over "
             "sorted positions (stratified/systematic)"
         )
+    if (pack_fn is None) != (unpack_fn is None):
+        raise ValueError("pack_fn and unpack_fn must be given together")
     if always_resample and never_resample:
         raise ValueError(
             "always_resample and never_resample are mutually exclusive"
@@ -395,7 +443,7 @@ def build_sweep_op(
     return SweepOp(num_state_cols, init_fn, transition_fn, log_weight_fn,
                    num_params, resample_fn, mode, num_obs_cols, kernel,
                    aux_log_weight_fn=aux_log_weight_fn, move_fn=move_fn,
-                   gaps=obs_gaps)
+                   gaps=obs_gaps, pack_fn=pack_fn, unpack_fn=unpack_fn)
 
 
 def build_sweep_pf_impl(
@@ -406,19 +454,28 @@ def build_sweep_pf_impl(
     param_names,
     aux_log_weight_fn=None,
     move_fn=None,
+    interpret: bool = False,
     num_obs_cols: int = 1,
+    pack_fn=None,
+    unpack_fn=None,
+    num_packed_cols: int = 1,
     obs_transform=None,
     kernel: KernelModel | None = None,
 ):
     """PMMH ``pf_impl`` factory over :func:`build_sweep_op`: BPF, APF when
     ``aux_log_weight_fn`` is given, RMPF when ``move_fn`` is given (RMPF
-    forces SISR and never SIS), and ``obs_times`` as gap counts.
+    forces SISR and never SIS), and ``obs_times`` as gap counts. Takes
+    every argument of the JAX ``build_sweep_pf_impl`` (``interpret`` and
+    ``num_packed_cols`` are ignored, as in :func:`build_sweep_op`).
 
     The factory takes the arguments of the JAX ``pf_impl`` hook and returns
     ``pf(seed_words [C, 2], theta [C, P], n=num_particles) -> (loglike,
     state_est)``, with ``theta`` in the sampler's parameter order; the
     callbacks see it in ``param_names`` order.
     """
+    del interpret, num_packed_cols
+    if (pack_fn is None) != (unpack_fn is None):
+        raise ValueError("pack_fn and unpack_fn must be given together")
     expected = tuple(param_names)
 
     def factory(y, num_particles, param_names, model_fns, obs_times,
@@ -463,7 +520,8 @@ def build_sweep_pf_impl(
                              or resample_algorithm == "SISR"),
             never_resample=(resample_algorithm == "SIS"
                             and algorithm != "RMPF"),
-            num_obs_cols=num_obs_cols, obs_gaps=obs_gaps, kernel=kernel,
+            num_obs_cols=num_obs_cols, pack_fn=pack_fn, unpack_fn=unpack_fn,
+            obs_gaps=obs_gaps, kernel=kernel,
         )
         if obs_transform is not None:
             ys = obs_transform(ys)

@@ -88,14 +88,31 @@ Phases:
     (logit phi) at 4096 chains, T = 50, m = 64, K3 launched; and 8 MH
     steps of ``sir_model(transition="tauleap")`` at 4096 x 128 x 10 (the
     port of ``bench.py --transition tauleap``), 10 K3 launches and no K4 a
-    step.
+    step;
+22. user-written callbacks on the card (K1g, the functor that
+    ``ops/sweep_codegen.py`` generates from traced ``torch`` callbacks):
+    (a) the SV callbacks of ``examples/torch_custom_sweep_kernel.py``
+    against their plain sweep at 4096 x 128 x 50 (``simulate_sv(1405)``,
+    theta spread around (0.95, 0.3, -1.0)) for BPF, APF, RMPF (the move of
+    ``tests/test_sweep_builder.py:43-48``) and a gapped sweep (50
+    observations over 70 steps), and BPF at 4096 x 1024 with counts
+    50..1000: bitwise, or >= 99% of chains within 1e-3; (b) the functor
+    generated from the port's sinusoidal callbacks against the hand-written
+    K1c on phase 17's inputs, bit for bit; (c) K1g's ms by CUDA-graph
+    replay and its bound, the lane instructions counted from the IR
+    (``ir_instr``); (d) the example's ``pmmh()`` through
+    ``build_sweep_pf_impl`` at phase 21's setting, only
+    ``bssm_sweep_generated`` launched, beside phase 21's engine figure;
+    (e) every op the tracer maps (``sweep_codegen.op_zoo``) through its
+    generated kernel against PyTorch's CUDA ops, bit for bit.
 
 Each kernel's bound is the larger of the bytes it must move over the
 card's memory rate and its lane instructions over the card's rate for
 their pipe (``bound``); K1's and K4's instructions are mostly the
 Gillespie events this run's data needs, counted by the plain versions
 (``EventTally``); K1c's and K1b-mv's are their functors' normals, ``sinf``
-and Gaussian weights, counted from the source.
+and Gaussian weights, counted from the source; K1g's are its IR's ops,
+priced alike (``ir_instr``).
 
 ``--profile`` adds a ``torch.profiler`` window over 8 steps of each path
 (and of each ``pmmh()`` path's phase 2, at its lane bound and counts)
@@ -123,7 +140,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 ROUTE = "cuda"
-SWEEP_SOURCE = "bayesssm_tpu_torch/csrc/sweep.cu"
+SWEEP_SOURCE = "bayesssm_tpu_torch/csrc/sweep.cuh"
 SWEEP_REPLACES = "bayesssm_tpu/ops/sweep_builder.py:146"
 SELECT_SOURCE = "bayesssm_tpu_torch/csrc/select.cuh"
 SELECT_REPLACES = "bayesssm_tpu/ops/merge_select.py:131"
@@ -132,6 +149,8 @@ RESAMPLE_REPLACES = "bayesssm_tpu/ops/resampling_pallas.py:60"
 GILLESPIE_SOURCE = "bayesssm_tpu_torch/csrc/gillespie.cu"
 GILLESPIE_REPLACES = "bayesssm_tpu/ops/gillespie_pallas.py:71"
 SIN_REPLACES = "bayesssm_tpu/models/sinusoidal.py:55"
+# K1 with a user's callbacks: the JAX builder's public escape hatch.
+GEN_REPLACES = "bayesssm_tpu/ops/sweep_builder.py:146"
 LGSS_MV_REPLACES = "bayesssm_tpu/ops/lgss_sweep_pallas.py:116"
 SIN_THETA0, SIN_PROP_SD = (0.8, 1.0, 0.5), (0.05, 0.1, 0.1)  # bench.py:46-47
 CHAINS, PARTICLES = 4096, 128
@@ -172,6 +191,16 @@ EVENT_INSTR = (72, 25, 4)
 NORMAL_INSTR = (90, 24, 5)
 SINF_INSTR = (25, 4, 0)
 GAUSS_WEIGHT_INSTR = (35, 0, 3)
+# Each IR op of a generated functor, priced as above: a counter draw 14
+# (12 integer, one conversion); expf, logf, log1pf, expm1f, tanhf ~20 with
+# one MUFU; sqrtf, an IEEE divide or reciprocal ~8 with one MUFU; sinf and
+# cosf as SINF_INSTR; powf ~40; NaN-propagating max/min/clamp 3; every
+# other op (add, multiply, compare, select, a host int) 1.
+IR_PRICE = {"uniform": (14, 12, 1), "normal": NORMAL_INSTR,
+            "exp": (20, 0, 1), "log": (20, 0, 1), "log1p": (20, 0, 1),
+            "expm1": (20, 0, 1), "tanh": (20, 0, 1), "sqrt": (8, 0, 1),
+            "recip": (8, 0, 1), "sin": SINF_INSTR, "cos": SINF_INSTR,
+            "maximum": 3, "minimum": 3, "clamp": 3}
 
 
 def instr(*parts):
@@ -179,6 +208,28 @@ def instr(*parts):
     that many float instructions."""
     tuples = [q if isinstance(q, tuple) else (q, 0, 0) for q in parts]
     return tuple(sum(q[j] for q in tuples) for j in range(3))
+
+
+def ir_instr(fn):
+    """Lane instructions of one call of a traced callback (``IR_PRICE``;
+    a divide by a traced value ~8 with one MUFU, by a number 1; ``pow`` by
+    its exponent)."""
+    from bayesssm_tpu_torch.ops.sweep_codegen import Const
+
+    parts = []
+    for node in fn.nodes:
+        if node.op in ("col", "theta", "obs", "time"):
+            continue
+        if node.op == "div" and not isinstance(node.args[1], Const):
+            parts.append((8, 0, 1))
+        elif node.op == "pow":
+            e = float(node.attr)
+            parts.append({0.0: 0, 1.0: 0, 2.0: 1, 3.0: 2, -0.5: (4, 0, 1)}
+                         .get(e, (8, 0, 1) if e in (0.5, -1.0, -2.0)
+                              else (40, 0, 2)))
+        else:
+            parts.append(IR_PRICE.get(node.op, 1))
+    return instr(*parts)
 
 
 def stage_instr(n: int):
@@ -959,7 +1010,7 @@ def phase_pmmh(path, control, pf_wrapper="bootstrap_filter", m=PMMH_M,
 
 def functor_check(dev, what, entry, op, ys, theta, n, counts=None, reps=10,
                   transitions=None, trans_instr=(0, 0, 0),
-                  weight_instr=GAUSS_WEIGHT_INSTR):
+                  weight_instr=GAUSS_WEIGHT_INSTR, init_instr=NORMAL_INSTR):
     """K1 with an event-free functor (``entry``) against the plain sweep of
     ``op`` on ``theta [C, P]`` and ``ys [T, d_y]`` on the card, every lane
     alive or ``counts [C]`` of them: agreement, a second launch bitwise
@@ -968,7 +1019,8 @@ def functor_check(dev, what, entry, op, ys, theta, n, counts=None, reps=10,
     takes: a launch takes the host about 0.2 ms to issue, near these
     kernels' own time), plain ms and the bound: the init normal, the
     transitions (``transitions`` a lane, ``trans_instr`` each) and a
-    Gaussian weight and a weight-and-selection stage a day."""
+    Gaussian weight (``weight_instr``) and a weight-and-selection stage a
+    day."""
     c, p = theta.shape
     t, d_y = ys.shape[0], (1 if ys.ndim == 1 else ys.shape[1])
     # The counts as a device tensor: a graph capture copies nothing from
@@ -983,7 +1035,7 @@ def functor_check(dev, what, entry, op, ys, theta, n, counts=None, reps=10,
     live = float(alive.sum())
     bytes_moved = 4 * (4 * c + t * d_y + p * c) + 4 * (c + c * (t + 1))
     bound_ms, bound_by = bound(
-        bytes_moved, (live, NORMAL_INSTR),
+        bytes_moved, (live, init_instr),
         (live * (t if transitions is None else transitions), trans_instr),
         (live * t, instr(weight_instr, stage_instr(n))))
     say(what, shape=f"{c}x{n}x{t}", alive="all" if counts is None else
@@ -1169,6 +1221,7 @@ def phase_sv_tauleap(dev, control):
         {"phi": 0.95, "sigma": 0.3, "mu": -1.0}, transform, control, 64, 16,
         "T = 50 (simulate_sv's default), m = 64, burn_in = 16")
     expect_launches("pmmh sv", sv_counts, ["bssm_fused_resample"], "others")
+    sv_out = out
     phi = out.theta_chain["phi"]
     if not ((phi > 0) & (phi < 1)).all():
         raise AssertionError("pmmh sv: phi left (0, 1), so logit phi is "
@@ -1178,8 +1231,157 @@ def phase_sv_tauleap(dev, control):
     pf = model_pf("engine", y_sir, tfns, list(lp), None)
     tau_counts = run_mh(dev, "tauleap_engine", pf, 8,
                         {"bssm_fused_resample": len(y_sir)})[0]
-    return [sv_counts, tau_counts]
+    return [sv_counts, tau_counts], sv_out
 
+
+def load_example():
+    """``examples/torch_custom_sweep_kernel.py``: the user's SV callbacks
+    and their ``pf_impl``."""
+    import importlib.util
+
+    path = ROOT / "examples" / "torch_custom_sweep_kernel.py"
+    spec = importlib.util.spec_from_file_location("torch_custom_sweep_kernel",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sv_move(rng, cols, th, y_t):
+    """The RMPF move of ``tests/test_sweep_builder.py:43-48``, in torch."""
+    lw = load_example().sv_log_weight
+    x = cols[0]
+    prop = x + 0.3 * rng.normal()
+    log_ratio = lw((prop,), th, y_t) - lw((x,), th, y_t)
+    accept = torch.log(rng.uniform()) < log_ratio
+    return (torch.where(accept, prop, x),)
+
+
+def generated_bound_args(op, n, t):
+    """``functor_check``'s instruction arguments for a traced op: its
+    IR's init, transitions (two a day for the APF) and, a day, the
+    log-weight, the aux weight twice and the aux stage (APF) and the move
+    (RMPF); ``functor_check`` adds the day's weight-and-selection
+    stage."""
+    fns = op.trace().fns
+    weight = [ir_instr(fns["log_weight"])]
+    transitions = None if op.gaps is None else sum(op.gaps)
+    if "aux_log_weight" in fns:
+        weight += [ir_instr(fns["aux_log_weight"])] * 2 + [stage_instr(n)]
+        transitions = 2 * t
+    if "move" in fns:
+        weight.append(ir_instr(fns["move"]))
+    return dict(transitions=transitions,
+                trans_instr=ir_instr(fns["transition"]),
+                weight_instr=instr(*weight), init_instr=ir_instr(fns["init"]))
+
+
+def phase_generated(dev, control, engine_sv):
+    """Phase 22: K1g, the functor generated from a user's callbacks."""
+    from bayesssm_tpu_torch.models.sinusoidal import (
+        _sinusoidal_op,
+        _sweep_init,
+        _sweep_log_weight,
+        _sweep_transition,
+        simulate_sinusoidal,
+    )
+    from bayesssm_tpu_torch.models.stochastic_volatility import (
+        simulate_sv,
+        sv_model,
+    )
+    from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.ops.sweep_builder import build_sweep_op
+    from bayesssm_tpu_torch.ops.sweep_codegen import op_zoo, probe
+
+    ex = load_example()
+    entry = "bssm_sweep_generated"
+    _, y = simulate_sv(1405)
+    ys = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(22)
+    theta = np.array([0.95, 0.3, -1.0]) * np.exp(
+        0.05 * rng.normal(size=(CHAINS, 3)))
+    theta[:, 0] = np.minimum(theta[:, 0], 0.99)   # phi inside (0, 1)
+    theta = torch.as_tensor(theta.astype(np.float32), device=dev)
+    sv = (1, ex.sv_init, ex.sv_transition, ex.sv_log_weight, 3)
+    gaps = (1, 2) * 20 + (1,) * 10          # 50 observations, 70 steps
+    ops = {"generated_bpf": build_sweep_op(*sv),
+           "generated_apf": build_sweep_op(
+               *sv, aux_log_weight_fn=ex.sv_log_weight),
+           "generated_rmpf": build_sweep_op(*sv, move_fn=sv_move,
+                                            always_resample=True),
+           "generated_gapped": build_sweep_op(*sv, obs_gaps=gaps)}
+    t0 = time.perf_counter()
+    for op in ops.values():
+        _build.build_generated(op.generated_kernel().source)
+    say("generated", build_s=time.perf_counter() - t0,
+        libraries=len({op.generated_kernel().entry for op in ops.values()}))
+    for tag, info in _build.build_info.get("generated", {}).items():
+        for ln in info["ptxas"].splitlines():
+            if re.search(r"registers|spill", ln):
+                print(f"[generated] {tag} {ln.strip()}")
+    rows = {what: functor_check(dev, what, entry, op, ys, theta, PARTICLES,
+                                **generated_bound_args(op, PARTICLES, len(y)))
+            for what, op in ops.items()}
+    bpf = ops["generated_bpf"]
+    functor_check(dev, "generated_bpf_lane_bound", entry, bpf, ys, theta,
+                  1024, counts=spread_counts(dev), reps=3,
+                  **generated_bound_args(bpf, 1024, len(y)))
+
+    # (b) the generator against a functor known to be right: K1c.
+    _, y_sin = simulate_sinusoidal(1405, 20)
+    ys_sin = torch.as_tensor(y_sin, dtype=torch.float32, device=dev)
+    th_sin = torch.as_tensor(
+        (np.array(SIN_THETA0) * np.exp(0.1 * np.random.default_rng(17)
+                                       .normal(size=(CHAINS, 3))))
+        .astype(np.float32), device=dev)
+    traced = build_sweep_op(1, _sweep_init, _sweep_transition,
+                            _sweep_log_weight, 3)
+    words = words_for(CHAINS, 23, dev)
+    got = traced(words, ys_sin, th_sin, PARTICLES)
+    want = _sinusoidal_op()(words, ys_sin, th_sin, PARTICLES)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    say("generated_sinusoidal_vs_k1c", shape=f"{CHAINS}x{PARTICLES}x20",
+        bitwise_equal=same,
+        max_abs_err=float((got[0] - want[0]).abs().max()))
+    if not same:
+        raise AssertionError("the generated sinusoidal functor differs "
+                             "from K1c")
+
+    # (e) every op the tracer maps, against PyTorch's own CUDA ops.
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn((1 << 16, 2), device=dev, generator=gen) * torch.exp(
+        3.0 * torch.randn((1 << 16, 2), device=dev, generator=gen))
+    x[:8] = torch.tensor([[0.0, -0.0], [-0.0, 0.0], [1.0, 1.0],
+                          [math.inf, 2.0], [-math.inf, -1.0],
+                          [math.nan, 0.5], [0.5, math.nan], [1e-40, -3.0]],
+                         device=dev)
+    got = probe(op_zoo, x)
+    want = torch.stack([o.to(torch.float32) for o in op_zoo(x.unbind(1))],
+                       dim=1)
+    torch.cuda.synchronize()
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (
+        got.isnan() & want.isnan())
+    bad = [j for j in range(got.shape[1]) if not bool(same[:, j].all())]
+    say("generated_ops", ops=got.shape[1], rows=x.shape[0],
+        bitwise_equal=not bad, differing_outputs=bad)
+    if bad:
+        raise AssertionError(f"op_zoo outputs {bad} differ on the card")
+
+    # (d) the example's pmmh() on the sweep path, at phase 21's setting.
+    fns, log_priors, transform = sv_model()
+    counts, out = run_pmmh(
+        "sv-sweep", y, fns, log_priors,
+        {"phi": 0.95, "sigma": 0.3, "mu": -1.0}, transform, control, 64, 16,
+        "T = 50 (simulate_sv's default), m = 64, burn_in = 16",
+        pf_impl=ex.sv_pf_impl())
+    expect_launches("pmmh sv sweep", counts, [entry], "others")
+    t = out.timings
+    say("generated_pmmh", sweep_samples_per_s=CHAINS * 63 / t["sampling"],
+        sweep_tuning_s=t["tuning"],
+        engine_samples_per_s=CHAINS * 63 / engine_sv.timings["sampling"],
+        engine_tuning_s=engine_sv.timings["tuning"])
+    return rows["generated_bpf"], counts
 
 def pmmh_phase2(dev, path, out):
     """The filter and a sampler state as ``pmmh()``'s phase 2 holds them
@@ -1314,14 +1516,17 @@ def main() -> int:
     main_counts.append(run_counts)
     main_counts += phase_sinusoidal_mh(dev)
     main_counts += phase_readme_pmmh(control)
-    main_counts += phase_sv_tauleap(dev, control)
+    run_counts, sv_out = phase_sv_tauleap(dev, control)
+    main_counts += run_counts
+    gen_row, run_counts = phase_generated(dev, control, sv_out)
+    main_counts.append(run_counts)
     total = {name: sum(c[name] for c in main_counts)
              for name in _build.launches}
 
     # select_index has no launch of its own on either path: it runs inside
     # every sweep and every fused-resample launch counted here.
     sweeps = ("bssm_sweep_sir", "bssm_sweep_sinusoidal",
-              "bssm_sweep_lgss_mv")
+              "bssm_sweep_lgss_mv", "bssm_sweep_generated")
     select_launches = (sum(total[k] for k in sweeps)
                        + total["bssm_fused_resample"])
     say("select", main_path_launches_of_its_kernels=select_launches)
@@ -1331,6 +1536,8 @@ def main() -> int:
              total["bssm_sweep_sinusoidal"], sin_row),
             ("bssm_sweep_lgss_mv", SWEEP_SOURCE, LGSS_MV_REPLACES,
              total["bssm_sweep_lgss_mv"], mv_row),
+            ("bssm_sweep_generated", SWEEP_SOURCE, GEN_REPLACES,
+             total["bssm_sweep_generated"], gen_row),
             ("bssm_select", SELECT_SOURCE, SELECT_REPLACES, select_launches,
              select_row),
             ("bssm_fused_resample", RESAMPLE_SOURCE, RESAMPLE_REPLACES,

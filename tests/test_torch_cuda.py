@@ -3,6 +3,9 @@ card. Every test here needs an NVIDIA GPU with ``nvcc`` (``-m cuda``) and
 skips without one; ``chip_smoke.py`` runs the same checks at the main
 path's full shapes."""
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from bayesssm_tpu_torch.ops.sweep_builder import build_sweep_op, cdf_ext
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture
@@ -90,13 +94,168 @@ def test_sir_kernel_matches_plain_sweep(dev):
     assert float(((ll - ll_p).abs() <= 1e-3).float().mean()) >= 0.99
 
 
-def test_callbacks_without_a_kernel_raise_on_cuda(dev):
-    op = build_sweep_op(1, lambda rng, th: (th[0] * 0,),
-                        lambda rng, cols, th, t: cols,
-                        lambda cols, th, y: cols[0] * 0, 1)
-    words = _words(2, 3, dev)
-    with pytest.raises(NotImplementedError, match="CUDA kernel"):
-        op(words, torch.zeros(3), torch.zeros((2, 1), device=dev), 128)
+def _example():
+    """``examples/torch_custom_sweep_kernel.py``: the user's SV callbacks."""
+    path = ROOT / "examples" / "torch_custom_sweep_kernel.py"
+    spec = importlib.util.spec_from_file_location("torch_custom_sweep_kernel",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sv_move(rng, cols, th, y_t):
+    """The RMPF move of ``tests/test_sweep_builder.py:43-48``."""
+    lw = _example().sv_log_weight
+    x = cols[0]
+    prop = x + 0.3 * rng.normal()
+    log_ratio = lw((prop,), th, y_t) - lw((x,), th, y_t)
+    accept = torch.log(rng.uniform()) < log_ratio
+    return (torch.where(accept, prop, x),)
+
+
+def _walk_init(rng, th):
+    return (th[0] * 0.0 + 400.0, th[0] * 0.0 + 20.0)
+
+
+def _walk_transition(rng, cols, th, t):
+    """An integer (S, I) walk: I moves by -1, 0 or 1 and S pays for each
+    step up."""
+    s, i = cols
+    i2 = torch.clamp(i + torch.floor(rng.uniform() * 3.0) - 1.0, min=0.0)
+    return (torch.where(i2 > i, s - 1.0, s), i2)
+
+
+def _walk_log_weight(cols, th, y_t):
+    lam = cols[1] + th[0]
+    return y_t * torch.log(lam) - lam
+
+
+def _pack(cols):
+    """The SIR pack pair of ``ops/sir_sweep_pallas.py:184-193``."""
+    return (cols[0] * 4096.0 + cols[1],)
+
+
+def _unpack(packed):
+    v = packed[0]
+    s = torch.floor(v * (1.0 / 4096.0))
+    return (s, v - s * 4096.0)
+
+
+def _traced_case(case):
+    """(op, y, theta row) of one traced-callback case."""
+    from bayesssm_tpu_torch.models.stochastic_volatility import simulate_sv
+
+    ex = _example()
+    _, y = simulate_sv(1405, 12)
+    sv = (1, ex.sv_init, ex.sv_transition, ex.sv_log_weight, 3)
+    theta = [0.95, 0.3, -1.0]
+    if case == "bpf":
+        return build_sweep_op(*sv), y, theta
+    if case == "apf":
+        return build_sweep_op(*sv, aux_log_weight_fn=ex.sv_log_weight), y, theta
+    if case == "rmpf":
+        return (build_sweep_op(*sv, move_fn=_sv_move, always_resample=True),
+                y, theta)
+    if case == "gapped":
+        return (build_sweep_op(*sv, resample_fn="systematic",
+                               obs_gaps=(1, 2, 1, 1, 3, 1, 1, 2, 1, 1, 2, 1)),
+                y, theta)
+    op = build_sweep_op(2, _walk_init, _walk_transition, _walk_log_weight, 1,
+                        pack_fn=_pack, unpack_fn=_unpack, always_resample=True)
+    return op, np.abs(np.round(20 + 3 * y)), [0.5]
+
+
+@pytest.mark.parametrize("n", [128, 1024])
+@pytest.mark.parametrize("case", ["bpf", "apf", "rmpf", "gapped", "packed"])
+def test_traced_callbacks_launch_the_generated_kernel(dev, case, n):
+    """User callbacks without a functor (SV; an integer walk with the SIR
+    pack pair): one ``bssm_sweep_generated`` launch per call, bit for bit
+    equal to the plain sweep of the same callbacks on the card."""
+    op, y, row = _traced_case(case)
+    c = 64
+    gen = torch.Generator(device=dev).manual_seed(25)
+    theta = (torch.tensor([row], device=dev)
+             * torch.exp(0.05 * torch.randn((c, len(row)), device=dev,
+                                            generator=gen))).contiguous()
+    theta[:, 0].clamp_(max=0.99)      # SV's phi stays inside (0, 1)
+    counts = torch.linspace(n // 2, n, c, device=dev).round()
+    words = _words(c, 26, dev)
+    before = dict(_build.launches)
+    ll, est = op(words, y, theta, counts, max_particles=n)
+    ll2, _ = op(words, y, theta, counts, max_particles=n)
+    after = dict(_build.launches)
+    assert after.pop("bssm_sweep_generated") == before.pop(
+        "bssm_sweep_generated") + 2
+    assert after == before
+    ll_p, est_p = op.sweep_reference(words, y, theta, counts, max_particles=n)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ll).all() and torch.equal(ll, ll2)
+    assert torch.equal(ll, ll_p) and torch.equal(est, est_p)
+
+
+def test_untraceable_callback_raises_on_cuda(dev):
+    """A callback with an op the tracer does not take raises ValueError
+    naming it, with no launch and no plain-sweep result."""
+    ex = _example()
+    op = build_sweep_op(1, ex.sv_init, ex.sv_transition,
+                        lambda cols, th, y_t: cols[0] - cols[0].sum(), 3)
+    theta = torch.tensor([[0.95, 0.3, -1.0]], device=dev).expand(2, 3)
+    before = dict(_build.launches)
+    with pytest.raises(ValueError, match="sum"):
+        op(_words(2, 3, dev), torch.zeros(3), theta, 128)
+    assert _build.launches == before
+
+
+def test_generated_sinusoidal_functor_equals_k1c(dev):
+    """The functor generated from the port's own sinusoidal callbacks
+    (``models/sinusoidal.py``) equals the hand-written K1c bit for bit."""
+    from bayesssm_tpu_torch.models.sinusoidal import (
+        _sinusoidal_op,
+        _sweep_init,
+        _sweep_log_weight,
+        _sweep_transition,
+        simulate_sinusoidal,
+    )
+
+    _, y = simulate_sinusoidal(1405, 20)
+    traced = build_sweep_op(1, _sweep_init, _sweep_transition,
+                            _sweep_log_weight, 3)
+    c = 64
+    gen = torch.Generator(device=dev).manual_seed(27)
+    theta = (torch.tensor([[0.8, 1.0, 0.5]], device=dev)
+             * torch.exp(0.1 * torch.randn((c, 3), device=dev,
+                                           generator=gen))).contiguous()
+    words = _words(c, 28, dev)
+    _build.reset_launches()
+    got = traced(words, y, theta, 128)
+    want = _sinusoidal_op()(words, y, theta, 128)
+    assert _build.launches["bssm_sweep_generated"] == 1
+    assert _build.launches["bssm_sweep_sinusoidal"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_every_traced_op_rounds_as_pytorch_does(dev):
+    """``sweep_codegen.op_zoo`` (every op the tracer maps) through its
+    generated elementwise kernel against PyTorch's own CUDA ops, bit for
+    bit, NaN for NaN, on values that reach the ops' special cases."""
+    from bayesssm_tpu_torch.ops.sweep_codegen import op_zoo, probe
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn((4096, 2), device=dev, generator=gen) * torch.exp(
+        3.0 * torch.randn((4096, 2), device=dev, generator=gen))
+    x[:8] = torch.tensor([[0.0, -0.0], [-0.0, 0.0], [1.0, 1.0],
+                          [float("inf"), 2.0], [float("-inf"), -1.0],
+                          [float("nan"), 0.5], [0.5, float("nan")],
+                          [1e-40, -3.0]], device=dev)
+    got = probe(op_zoo, x)
+    want = torch.stack([o.to(torch.float32) for o in op_zoo(x.unbind(1))],
+                       dim=1)
+    torch.cuda.synchronize()
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (
+        got.isnan() & want.isnan())
+    bad = [j for j in range(got.shape[1]) if not bool(same[:, j].all())]
+    assert not bad, f"op_zoo outputs {bad} differ"
 
 
 @pytest.mark.parametrize("method", ["stratified", "systematic",

@@ -24,7 +24,8 @@ def _imports(path):
 
 
 def test_no_module_imports_jax_or_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "torch_custom_sweep_kernel.py"]
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
@@ -130,6 +131,19 @@ def test_port_runs_with_jax_blocked():
         draws = threefry.binomial(keys, torch.full((3, 8), 50.0),
                                   torch.full((3, 8), 0.4))
         assert draws.shape == (3, 8)
+        # User-written callbacks: traced into a generated functor, and the
+        # example's pmmh() on the plain sweep.
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "ex", "examples/torch_custom_sweep_kernel.py")
+        ex = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(ex)
+        from bayesssm_tpu_torch.ops.sweep_builder import build_sweep_op
+        op = build_sweep_op(1, ex.sv_init, ex.sv_transition,
+                            ex.sv_log_weight, 3)
+        assert "struct GenModel" in op.generated_kernel().source
+        out = ex.main(m=4, device="cpu")
+        assert np.isfinite(out.theta_chain["phi"]).all()
         assert not any(m.split(".")[0] in ("jax", "jaxlib")
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
