@@ -12,6 +12,7 @@
 // sweep compiles those stages in only for functors that have them.
 #pragma once
 
+#include "reduce.cuh"
 #include "rng.cuh"
 
 namespace bssm {
@@ -20,45 +21,63 @@ constexpr int kMaxEvents = 100000;  // ops/gillespie_pallas.py:52
 // float32(0.5 * log(2 pi)), the Gaussian weights' constant.
 constexpr float kHalfLog2Pi = 0.918938533204672742f;
 
-// The exact SIR jump process over [0, t_end] for one lane: the event body
-// of the JAX package's SIR sweep callback (ops/sir_sweep_pallas.py:119-133)
-// and of its Gillespie day-step kernel (ops/gillespie_pallas.py:159-174),
-// written once for the sweep's SirModel and the day-step kernel
-// (gillespie.cu). The block loops while any lane of the chain is active
-// (__syncthreads_or) and below the event cap; each iteration consumes
-// 2 * unroll counters of the chain's stream. One log1pf and one division
-// per event; dead lanes' inf/NaN stay behind `fire`. Every thread of the
-// block must call it.
-__device__ __forceinline__ void sir_day(Rng& rng, float& s, float& i,
-                                        float lam_n, float gam, float t_end,
-                                        int unroll) {
+// Attempts a lane may run in one call: the JAX loop's event cap rounded up
+// to whole groups of `unroll`.
+__host__ __device__ constexpr int event_cap(int unroll) {
+  return unroll * ((kMaxEvents + unroll - 1) / unroll);
+}
+
+// The serial step of one attempt of the exact SIR jump process (the event
+// body of the JAX package's SIR sweep callback, ops/sir_sweep_pallas.py:
+// 119-133, and of its Gillespie day-step kernel, ops/gillespie_pallas.py:
+// 159-174) given its draws: neg_log = -log1pf(-u0) and u1. Returns whether
+// the lane is still active (the event fell inside [0, t_end] and I > 0).
+// One division; a rate of 0 gives an inf or NaN time that fails the
+// `t_end` test, as in the plain version.
+__device__ __forceinline__ bool sir_event(float neg_log, float u1, float& s,
+                                          float& i, float& tloc, float lam_n,
+                                          float gam, float t_end) {
+  const float rate_inf = lam_n * s * i;
+  const float rate_tot = rate_inf + gam * i;
+  const float t_new = tloc + neg_log * (1.0f / rate_tot);
+  const bool fire = t_new <= t_end;
+  if (fire) {
+    if (u1 * rate_tot < rate_inf) {
+      s = s - 1.0f;
+      i = i + 1.0f;
+    } else {
+      i = i - 1.0f;
+    }
+    tloc = t_new;
+  }
+  return fire && i > 0.0f;
+}
+
+// The SIR jump process over [0, t_end] for one lane, with no barrier: the
+// lane runs attempts while it is active and below `cap`; attempt a draws
+// counters ctr0 + 2a (its waiting time) and ctr0 + 2a + 1 (its event).
+// Returns the attempts it ran, the one that ended it included.
+//
+// This equals the JAX loop, which runs a chain's lanes together in groups
+// of `unroll` attempts while any lane is active: a lane that is not active
+// never fires again, and group g draws counters ctr0 + 2 unroll g onward
+// whatever the other lanes do. So the lane's state depends on its own key,
+// state and rates alone, and the chain's counter after the day is
+// ctr0 + 2 unroll max_l ceil(attempts_l / unroll) (tests/
+// test_torch_gillespie_lanes.py holds both on the plain version).
+__device__ __forceinline__ int sir_lane(const Rng& rng, int ctr0, float& s,
+                                        float& i, float lam_n, float gam,
+                                        float t_end, int cap) {
   float tloc = 0.0f;
   bool active = i > 0.0f;
-  int steps = 0;
-  while (__syncthreads_or(active) && steps < kMaxEvents) {
-    for (int e = 0; e < unroll; ++e) {
-      const float u0 = rng.uniform_at(rng.ctr + 2 * e);
-      const float u1 = rng.uniform_at(rng.ctr + 2 * e + 1);
-      const float rate_inf = lam_n * s * i;
-      const float rate_tot = rate_inf + gam * i;
-      const float dt = -log1pf(-u0) * (1.0f / rate_tot);
-      const float t_new = tloc + dt;
-      const bool fire = active && t_new <= t_end;
-      const bool infect = u1 * rate_tot < rate_inf;
-      if (fire) {
-        if (infect) {
-          s = s - 1.0f;
-          i = i + 1.0f;
-        } else {
-          i = i - 1.0f;
-        }
-        tloc = t_new;
-      }
-      active = fire && i > 0.0f;
-    }
-    rng.ctr += 2 * unroll;
-    steps += unroll;
+  int a = 0;
+  while (active && a < cap) {
+    const int k = ctr0 + 2 * a;
+    active = sir_event(-log1pf(-rng.uniform_at(k)), rng.uniform_at(k + 1), s,
+                       i, tloc, lam_n, gam, t_end);
+    ++a;
   }
+  return a;
 }
 
 // Poisson log-pmf of y_t[0] at rate i, with lgamma(y + 1) = y_t[1] and
@@ -89,10 +108,15 @@ struct SirModel {
     st[1] = i0;
   }
 
-  // One exact Gillespie day: sir_day over [0, 1].
+  // One exact Gillespie day over [0, 1]: every lane runs sir_lane on its
+  // own (masked lanes too, as in the plain sweep), then one block max of
+  // the groups run moves the chain's counter as the JAX loop does. Every
+  // thread of the block must call it.
   __device__ void transition(Rng& rng, float st[D], const float* th,
                              int) const {
-    sir_day(rng, st[0], st[1], th[0] * inv_nt, th[1], 1.0f, unroll);
+    const int a = sir_lane(rng, rng.ctr, st[0], st[1], th[0] * inv_nt,
+                           th[1], 1.0f, event_cap(unroll));
+    rng.ctr += 2 * unroll * block_max_int((a + unroll - 1) / unroll);
   }
 
   // Poisson log-pmf in I, with I = 0 exact.

@@ -11,21 +11,22 @@
 // Layout: one thread block per chain (grid = C), one thread per particle
 // lane; blockDim is the lane count rounded up to a power of two (at least
 // 32), and the threads beyond it contribute the reductions' identities.
-// Shared memory holds the reduction scratch and the CDF (2 x blockDim
-// floats, 8 KB at 1024 lanes). Selection is the upper-bound binary search
-// of select.cuh (m_k = #{j : cdf_ext_j <= pos_k}) for every position
-// method: on a monotone CDF it picks the same ancestor as the TPU kernel's
-// merge network and its quadratic bucket test, and it takes unsorted
-// (multinomial) positions as they are. The [B, N, N] selection matrix and
-// the one-operand-per-column split were Mosaic workarounds and are gone.
+// Shared memory holds the reduction and scan scratch of reduce.cuh and the
+// CDF (about 5.1 x blockDim floats, 21 KB at 1024 lanes). Selection is the
+// upper-bound binary search of select.cuh (m_k = #{j : cdf_ext_j <=
+// pos_k}) for every position method: on a monotone CDF it picks the same
+// ancestor as the TPU kernel's merge network and its quadratic bucket
+// test, and it takes unsorted (multinomial) positions as they are. The
+// [B, N, N] selection matrix and the one-operand-per-column split were
+// Mosaic workarounds and are gone.
 //
 // What bounds it on this card: the per-day barriers. A day is three
-// reductions and the last-alive max (log2 N barrier pairs each) plus the
-// CDF scan (2 log2 N pairs), about 50 barriers at N = 128 for some 20
-// flops per lane; the [C, N] reads and writes (about 4 MB at 4096 x 128,
-// d = 2) take a couple of microseconds at HBM rate. One block per chain
-// keeps every barrier inside a chain, so blocks never wait for each other
-// and the card holds 16 such blocks per SM.
+// reductions and the last-alive max (2 barriers each, the in-warp levels
+// on shuffles) plus the CDF scan (3) and the selection's one, 12 barriers
+// for some 20 flops per lane; the [C, N] reads and writes (about 4 MB at
+// 4096 x 128, d = 2) take a couple of microseconds at HBM rate. One block
+// per chain keeps every barrier inside a chain, so blocks never wait for
+// each other and the card holds 16 such blocks per SM.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -58,7 +59,8 @@ __global__ void fused_resample_kernel(
   const int l = threadIdx.x;
   const int c = blockIdx.x;
   float* red = smem;
-  float* cdf = smem + P;
+  float* cdf = red + reduce_floats(P);
+  float* scan = cdf + P;
   const bool real = l < N;
   const size_t row = (size_t)c * N;
 
@@ -71,8 +73,8 @@ __global__ void fused_resample_kernel(
   const float uw = real ? uni[row + l] : 0.0f;
   // Last alive lane: the highest lane with a positive post-resample weight.
   const float last_alive = block_max(uw > 0.0f ? (float)l : 0.0f, red);
-  block_cdf(w, cdf, l, P);
-  if (real && (float)l >= last_alive) cdf[l] = kCdfSentinel;
+  const float c_l = block_cdf(w, scan);
+  cdf[l] = real && (float)l >= last_alive ? kCdfSentinel : c_l;
   __syncthreads();
 
   if (real) {
@@ -126,7 +128,9 @@ int bssm_fused_resample(const float* lw, const float* parts, const float* pos,
   }
   int threads = 32;
   while (threads < N) threads <<= 1;
-  const size_t smem = 2 * (size_t)threads * sizeof(float);
+  const size_t smem = sizeof(float) * (size_t)(bssm::reduce_floats(threads) +
+                                               threads +
+                                               bssm::scan_floats(threads));
   bssm::fused_resample_kernel<<<C, threads, smem, (cudaStream_t)stream>>>(
       lw, parts, pos, uni, thr, seeds, alive, pout, wout, ess, lse, N, D,
       method, always);

@@ -1,4 +1,5 @@
-// Inverse-CDF selection device functions of the whole-sweep kernel.
+// Inverse-CDF selection device functions of the whole-sweep kernel (the
+// CDF it searches comes from reduce.cuh::block_cdf).
 //
 // Replaces the bitonic lane-roll merge network of
 // bayesssm_tpu/ops/merge_select.py (merge_select_cols + resolve_carries),
@@ -28,28 +29,6 @@ __device__ __forceinline__ int select_index(const float* cdf, int n,
     }
   }
   return lo < n ? lo : n - 1;
-}
-
-// Inclusive Hillis-Steele scan of w over the block, then a running max, in
-// the doubling order of the JAX kernel (sweep_builder.py:244-254), so the
-// bits match the plain version for the same w. 2 * log2(n) barrier pairs.
-// Every thread of the block must call it.
-__device__ __forceinline__ void block_cdf(float w, float* cdf, int lane,
-                                          int n) {
-  cdf[lane] = w;
-  __syncthreads();
-  for (int s = 1; s < n; s <<= 1) {
-    const float a = lane >= s ? cdf[lane - s] : 0.0f;
-    __syncthreads();
-    cdf[lane] = cdf[lane] + a;
-    __syncthreads();
-  }
-  for (int s = 1; s < n; s <<= 1) {
-    const float a = lane >= s ? cdf[lane - s] : 0.0f;
-    __syncthreads();
-    cdf[lane] = nan_max(cdf[lane], a);
-    __syncthreads();
-  }
 }
 
 }  // namespace bssm

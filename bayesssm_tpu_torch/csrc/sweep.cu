@@ -42,6 +42,19 @@ int bssm_sweep_sir(const int* seeds, const float* y, const float* theta,
                             algorithm, (cudaStream_t)stream);
 }
 
+// Registers per thread and resident blocks per SM of the SIR sweep kernel
+// at n lanes.
+int bssm_sweep_sir_info(int n, int* regs, int* blocks_per_sm) {
+  using K = bssm::SirModel;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, bssm::sweep_kernel<K>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, bssm::sweep_kernel<K>, n,
+      bssm::SweepShared::bytes(n, bssm::Route<K>::kCols));
+}
+
 int bssm_sweep_lgss(const int* seeds, const float* y, const float* theta,
                     const float* alive, const float* thr, float* ll,
                     float* est, const int* gaps, const int* times, int C,

@@ -14,26 +14,32 @@
 // gap arrays are given); for APF the aux stage -- masked aux log-weights,
 // the degenerate kill, normalised aux weights, one position draw, the CDF
 // and selection, the ancestors' aux weights recomputed from the selected
-// state (a copy is exact, so this equals a gather and keeps the shared
-// memory at (2 + D) * N floats), the second transition (quirk Q2) and
+// state (a copy is exact, so this equals a gather and keeps the copy
+// buffer at D * N floats), the second transition (quirk Q2) and
 // lw - aux_anc; then the weight step and selection; for RMPF the move.
 // The chain's draw counter moves exactly as the plain sweep's does.
 //
 // Layout: one thread block per chain (grid = C), one thread per particle
 // lane (blockDim = max_particles, a power of two in 128..1024). A thread
 // keeps its particle's state in registers for all T days; y is read-only
-// in global memory; shared memory holds the reduction scratch, the CDF and
-// the ancestor-copy buffer ((2 + D) * N floats, 16 KB at N = 1024, D = 2).
-// Lanes >= alive stay inert but reach every barrier.
+// in global memory; shared memory holds the reduction and scan scratch of
+// reduce.cuh, the CDF and the ancestor-copy buffer (SweepShared: about
+// (5.1 + D) * N floats, 29 KB at N = 1024, D = 2). Lanes >= alive stay
+// inert but reach every barrier.
 //
-// What bounds it on this card: the SIR event loop (per event two hashes,
-// one log1pf and one divide per lane, plus the chain's tail of events:
-// the block iterates until its LAST lane is done) and the barriers of the
-// block reductions and the CDF scan (about 2 log2 N per day for the scan
-// and log2 N per reduction). One chain per block pays the event tail per
-// chain, where the TPU kernel paid it once per block of 256 chains; on the
-// other hand no chain waits for a slower neighbour. Reductions use a fixed
-// halving tree so the plain version (tree_sum) reproduces their bits.
+// What bounds it on this card: for SIR, instruction issue for the events
+// (two hashes, one log1pf and one divide each); for the event-free
+// functors, a day's barriers. The design does two things about them. The
+// SIR transition runs each lane's events on its own (models.cuh::
+// sir_lane) with one block maximum of the lanes' event groups a
+// transition for the chain's counter, so a warp issues only until its own
+// slowest lane is done and a finished warp waits at one barrier. The
+// reductions and the CDF scan keep the halving tree and JAX's doubling
+// order (tree_sum and running_cdf reproduce their bits) but run their
+// in-warp levels on shuffles (reduce.cuh): 2 barriers a reduction and 3
+// for the scan, 17 a resampling BPF day of SIR at any N. One chain per
+// block keeps every barrier inside a chain; the launch bound keeps a
+// 1024-lane block within the register file.
 //
 // A functor may set kHasPack (with DP packed columns, pack(st, pk) and
 // unpack(pk, st)): selection then routes the DP packed columns, unpacks
@@ -87,15 +93,35 @@ __device__ __forceinline__ float draw_position(Rng& rng, float lane_f,
   return live ? (lane_f + u) / alive : 1.0f;
 }
 
+// Shared memory of one block: reduction scratch, the CDF, the scan's
+// scratch and the ancestor-copy buffer of `cols` columns.
+struct SweepShared {
+  float* red;
+  float* cdf;
+  float* scan;
+  float* buf;
+  __device__ SweepShared(float* smem, int n)
+      : red(smem),
+        cdf(smem + reduce_floats(n)),
+        scan(cdf + n),
+        buf(scan + scan_floats(n)) {}
+  static size_t bytes(int n, int cols) {
+    return sizeof(float) *
+           (size_t)(reduce_floats(n) + n + scan_floats(n) + cols * n);
+  }
+};
+
 // Ancestor selection of the block's state: slot `lane` takes the state of
 // m = #{j : cdf_ext[j] <= pos} through shared memory; masked lanes get 0.
 template <int D>
 __device__ __forceinline__ void select_state(float w, float pos, float st[D],
-                                             float* cdf, float* buf, int lane,
+                                             const SweepShared& sh, int lane,
                                              int n, float lane_f, float alive,
                                              bool live) {
-  block_cdf(w, cdf, lane, n);
-  if (lane_f >= alive - 1.0f) cdf[lane] = kSentinel;
+  float* cdf = sh.cdf;
+  float* buf = sh.buf;
+  const float c = block_cdf(w, sh.scan);
+  cdf[lane] = lane_f >= alive - 1.0f ? kSentinel : c;
 #pragma unroll
   for (int j = 0; j < D; ++j) buf[j * n + lane] = st[j];
   __syncthreads();
@@ -109,41 +135,44 @@ __device__ __forceinline__ void select_state(float w, float pos, float st[D],
 template <class M>
 __device__ __forceinline__ void select_model(const M& model, float w,
                                              float pos, float st[M::D],
-                                             float* cdf, float* buf,
-                                             int lane, int n, float lane_f,
-                                             float alive, bool live) {
+                                             const SweepShared& sh, int lane,
+                                             int n, float lane_f, float alive,
+                                             bool live) {
   if constexpr (Route<M>::kPack) {
     float pk[M::DP];
     model.pack(st, pk);
-    select_state<M::DP>(w, pos, pk, cdf, buf, lane, n, lane_f, alive, live);
+    select_state<M::DP>(w, pos, pk, sh, lane, n, lane_f, alive, live);
     float un[M::D];
     model.unpack(pk, un);
 #pragma unroll
     for (int j = 0; j < M::D; ++j) st[j] = live ? un[j] : 0.0f;
   } else {
-    select_state<M::D>(w, pos, st, cdf, buf, lane, n, lane_f, alive, live);
+    select_state<M::D>(w, pos, st, sh, lane, n, lane_f, alive, live);
   }
 }
 
+// At most 1024 threads a block: the compiler keeps each instance within 64
+// registers a thread, so that a 1024-lane block fits an SM's register file.
+// (A minimum of one block an SM as well let ptxas give K1c 47 registers
+// where it gives 32, and two of its 1024-lane blocks no longer fit an SM.)
+constexpr int kMaxLanes = 1024;
+
 template <class M>
-__global__ void sweep_kernel(const int* __restrict__ seeds,
-                             const float* __restrict__ y,
-                             const float* __restrict__ theta,
-                             const float* __restrict__ alive_v,
-                             const float* __restrict__ thr_v,
-                             float* __restrict__ ll_out,
-                             float* __restrict__ est_out,
-                             const int* __restrict__ gaps,
-                             const int* __restrict__ times, int T, int mode,
-                             int systematic, int algorithm, M model) {
+__global__ void __launch_bounds__(kMaxLanes)
+    sweep_kernel(const int* __restrict__ seeds, const float* __restrict__ y,
+                 const float* __restrict__ theta,
+                 const float* __restrict__ alive_v,
+                 const float* __restrict__ thr_v, float* __restrict__ ll_out,
+                 float* __restrict__ est_out, const int* __restrict__ gaps,
+                 const int* __restrict__ times, int T, int mode,
+                 int systematic, int algorithm, M model) {
   extern __shared__ float smem[];
   __shared__ float u_lane0;
   const int n = blockDim.x;
   const int lane = threadIdx.x;
   const int c = blockIdx.x;
-  float* red = smem;
-  float* cdf = smem + n;
-  float* buf = smem + 2 * n;
+  const SweepShared shm(smem, n);
+  float* red = shm.red;
 
   const float alive = alive_v[c];
   const float thr = thr_v[c];
@@ -190,8 +219,8 @@ __global__ void sweep_kernel(const int* __restrict__ seeds,
         const float wa = sha / block_sum(sha, red);
         const float pos_a = draw_position(rng, lane_f, alive, live,
                                           systematic, &u_lane0);
-        select_model<M>(model, wa, pos_a, st, cdf, buf, lane, n, lane_f,
-                        alive, live);
+        select_model<M>(model, wa, pos_a, st, shm, lane, n, lane_f, alive,
+                        live);
         const float aux_anc =
             nan_max(live ? model.aux_log_weight(st, th, y_t) : kNeg, kNeg);
         model.transition(rng, st, th, gaps != nullptr ? times[t] - 1 : t);
@@ -216,7 +245,7 @@ __global__ void sweep_kernel(const int* __restrict__ seeds,
       const float pos = draw_position(rng, lane_f, alive, live, systematic,
                                       &u_lane0);
       if (mode == kAlways || ess < thr) {  // uniform across the block
-        select_model<M>(model, w, pos, st, cdf, buf, lane, n, lane_f, alive,
+        select_model<M>(model, w, pos, st, shm, lane, n, lane_f, alive,
                         live);
         est_w = w_res;
       }
@@ -250,7 +279,7 @@ int launch_sweep(M model, const int* seeds, const float* y,
                  float* ll, float* est, const int* gaps, const int* times,
                  int C, int N, int T, int mode, int systematic, int algorithm,
                  cudaStream_t stream) {
-  if (C < 1 || N < 128 || N > 1024 || (N & (N - 1)) || T < 0 ||
+  if (C < 1 || N < 128 || N > kMaxLanes || (N & (N - 1)) || T < 0 ||
       mode < kAdaptive || mode > kNever ||
       (gaps == nullptr) != (times == nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -262,7 +291,13 @@ int launch_sweep(M model, const int* seeds, const float* y,
       (algorithm == kRmpf && !M::kHasMove)) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)(2 + Route<M>::kCols) * N * sizeof(float);
+  const size_t smem = SweepShared::bytes(N, Route<M>::kCols);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sweep_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   sweep_kernel<M><<<C, N, smem, stream>>>(seeds, y, theta, alive, thr, ll,
                                           est, gaps, times, T, mode,
                                           systematic, algorithm, model);

@@ -11,9 +11,10 @@ lies on one CUDA device.
 Entries: ``bssm_sweep_sir``, ``bssm_sweep_lgss``, ``bssm_sweep_lgss_mv``
 and ``bssm_sweep_sinusoidal`` (K1 with each model functor, ``sweep.cu``),
 ``bssm_select`` (K2 alone), ``bssm_fused_resample`` (K3, ``resample.cu``)
-and ``bssm_gillespie`` (K4, ``gillespie.cu``). A functor generated from a
-user's sweep callbacks (``ops/sweep_codegen.py``) is compiled on its own
-by :func:`build_generated` into ``gen_<hash>.so`` with one entry,
+and ``bssm_gillespie`` (K4, ``gillespie.cu``), with ``*_info`` entries
+that :func:`occupancy` reads. A functor generated from a user's sweep
+callbacks (``ops/sweep_codegen.py``) is compiled on its own by
+:func:`build_generated` into ``gen_<hash>.so`` with one entry,
 ``bssm_sweep_gen_<hash>``, the kernel template of ``csrc/sweep.cuh``
 instantiated with it; its launches count under ``bssm_sweep_generated``.
 ``launch_probe`` builds and runs a generated elementwise kernel the same
@@ -43,9 +44,9 @@ import time
 import torch
 
 __all__ = ["NVCC_FLAGS", "launches", "reset_launches", "library_loaded",
-           "load_library", "build_info", "generated_entry", "build_generated",
-           "launch_probe", "launch_sweep", "launch_select", "launch_fused_resample",
-           "launch_gillespie"]
+           "load_library", "build_info", "occupancy", "generated_entry",
+           "build_generated", "launch_probe", "launch_sweep", "launch_select",
+           "launch_fused_resample", "launch_gillespie"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -80,6 +81,11 @@ _ENTRIES = {
     # seeds state lam gam out, C N, inv_nt t_end, unroll, stream
     "bssm_gillespie": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I, _P],
 }
+# Registers per thread and resident blocks per SM (out pointers): K1 with
+# the SIR functor at n lanes, and K4.
+_PI = ctypes.POINTER(ctypes.c_int)
+_INFO = {"bssm_sweep_sir_info": [_I, _PI, _PI],
+         "bssm_gillespie_info": [_PI, _PI]}
 
 # Launches of every generated functor count under one key.
 GENERATED = "bssm_sweep_generated"
@@ -180,7 +186,7 @@ def load_library():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         log = _compile([s for s in sources if s.suffix == ".cu"], out)
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in _ENTRIES.items():
+    for name, argtypes in {**_ENTRIES, **_INFO}.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _I
@@ -188,6 +194,23 @@ def load_library():
                       ptxas=log)
     _lib = lib
     return lib
+
+
+def occupancy() -> dict:
+    """Registers per thread and resident blocks per SM of K4
+    (``bssm_gillespie``) and of K1 with the SIR functor
+    (``bssm_sweep_sir``) at 128 and 1024 lanes, from the CUDA runtime."""
+    lib = load_library()
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    refs = (ctypes.byref(regs), ctypes.byref(blocks))
+    _raise_on(lib.bssm_gillespie_info(*refs), "bssm_gillespie_info")
+    out = {"bssm_gillespie": dict(registers=regs.value,
+                                  blocks_per_sm=blocks.value)}
+    for n in (128, 1024):
+        _raise_on(lib.bssm_sweep_sir_info(n, *refs), "bssm_sweep_sir_info")
+        out[f"bssm_sweep_sir@{n}"] = dict(registers=regs.value,
+                                          blocks_per_sm=blocks.value)
+    return out
 
 
 def _unit_digest(text: str) -> str:

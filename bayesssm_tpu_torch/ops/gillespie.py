@@ -17,8 +17,12 @@ day depends on its own key words and state alone, and
 
 :func:`gillespie_day` is the batched event loop itself; the whole-sweep SIR
 callback (``ops/sir_sweep.py``) runs the same function with its own
-counter, as the CUDA sweep and day-step kernels share ``sir_day``
-(``csrc/models.cuh``).
+counter. The CUDA sweep and day-step kernels share its event body
+(``csrc/models.cuh::sir_attempt``) but run each lane on its own
+(``sir_lane``): a lane that is no longer active never fires again, so its
+state depends on its own draws alone, and the chain's counter after the
+day is ``ctr + 2 * unroll * max_l ceil(attempts_l / unroll)``
+(``tests/test_torch_gillespie_lanes.py``).
 
 :func:`gillespie_step` routes by device: CPU tensors take the plain
 version, CUDA tensors launch ``bssm_gillespie`` (``csrc/gillespie.cu``) or

@@ -13,14 +13,17 @@ generic engine's bootstrap filter with the per-day kernels
 Phases:
 
 1. device name, count, and ``nvidia-smi`` name and power limit;
-2. kernel build: seconds, registers and spills from ``-Xptxas -v``;
+2. kernel build: seconds, registers and spills from ``-Xptxas -v``, and
+   the registers and resident blocks per SM of K4 and of K1 with the SIR
+   functor at 128 and 1024 lanes from the CUDA runtime
+   (``_build.occupancy``);
 3. ``bssm_select`` against searchsorted + gather, bitwise, N in {128, 1024};
 4. LGSS sweep kernel against the plain sweep (C=512, N=1024, T=20, SISR):
    >= 99% of chains within 1e-3 in loglike, mean within max(5 SE, 0.1) of
    the exact Kalman value;
 5. SIR sweep kernel against the plain sweep at 4096 x 128 x 10: >= 99% of
    chains within 1e-3, all finite, a second launch bitwise equal; kernel
-   and plain ms per sweep;
+   ms per sweep by CUDA-graph replay (and CUDA events), plain ms;
 6. the sweep path: one warm-up MH step, then 64 timed steps (samples/s on
    the host clock up to ``torch.cuda.synchronize()``), the plain sweep
    over 4 steps, and an acceptance rate strictly inside (0, 1);
@@ -30,7 +33,10 @@ Phases:
    columns, weights, ESS and log-sum-exp bitwise; kernel and plain ms;
 8. the Gillespie day-step (K4) against its plain version at 4096 x 128,
    rates spread as in phase 5 and some chains with I = 0: S and I bitwise;
-   kernel and plain ms;
+   kernel and plain ms; then on the states the engine path hands it (the
+   particles of phase 10's engine before each of its 10 days,
+   ``engine_day_states``): each day bitwise, and ms a launch by CUDA-graph
+   replay beside its bound;
 9. LGSS through ``bootstrap_filter`` with ``use_fused="auto"`` (C=512,
    N=1024, T=20, SISR): K3 launched every day, mean within max(5 SE, 0.1)
    of the Kalman value;
@@ -48,8 +54,7 @@ Phases:
     strictly inside (0, 1), target_n in [50, 1000];
 12. K1's APF, RMPF and gapped sweeps (``obs_times`` with gaps of 1-3
     days) against the plain sweep at 4096 x 128 x 10: bitwise, or >= 99%
-    of chains within 1e-3; kernel ms (CUDA events, 10 launches) and plain
-    ms;
+    of chains within 1e-3; kernel ms as in phase 5, and plain ms;
 13. K3 as the engine's APF aux resample runs it (3 columns: S, I and the
     clamped aux log-weight; forced) at 4096 x 128, bitwise;
 14. MH samples/s of the APF and the RMPF, the port of ``bench.py
@@ -168,6 +173,10 @@ GAPS = (1, 2, 1, 1, 3, 1, 1, 2, 1, 1)
 # 67 TFLOP/s in float32 outside the tensor cores, which counts a fused
 # multiply-add as two: 128 lanes x 2 x 132 SMs x 1.98 GHz.
 PEAK_BYTES_S = 3.35e12
+# Seconds of untimed calls before each timing (``cuda_ms``). Without them
+# the first kernel timed after host-bound work read up to 25% slow (H100
+# 80GB HBM3, 700 W).
+WARM_S = 1.0
 SM_CLOCKS_S = 67e12 / (2 * 128)
 # Lane instructions per SM and clock on compute capability 9.0 (the CUDA
 # C++ Programming Guide's throughput table): four schedulers issue 32
@@ -176,7 +185,7 @@ SM_CLOCKS_S = 67e12 / (2 * 128)
 # log2) or conversions. The kernels are built with --fmad=false, so a
 # float32 add or multiply is one instruction, not half of one FMA.
 ISSUE_PER_SM, ALU_PER_SM, XU_PER_SM = 128, 64, 16
-# Lane instructions per Gillespie event (models.cuh::sir_day), counted from
+# Lane instructions per Gillespie event (models.cuh::sir_attempt), counted from
 # the source as (all, integer ALU, MUFU or conversion): two counter draws
 # (14 each: counter add and multiply, key xor, lowbias32's three shift-xor
 # pairs and two multiplies, the shift, one conversion, the scale), the
@@ -255,8 +264,16 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` calls."""
+def cuda_ms(fn, reps: int, warm_s: float = WARM_S) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls, after
+    calling it for ``warm_s`` seconds (at least once): a card that has
+    idled on host-bound work runs the first calls at a lower clock."""
+    t0 = time.perf_counter()
+    while True:
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 >= warm_s:
+            break
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -463,8 +480,11 @@ def sweep_check(dev, what, algorithm="BPF", gaps=None, reps=10,
                 n=PARTICLES, counts=None):
     """K1 with the SIR functor against the plain sweep at 4096 chains x
     ``n`` lanes x 10 days, every lane alive or ``counts [C]`` of them
-    (``kernel_vs_plain``); kernel and plain ms, and the bound from the
-    events the plain sweep counted."""
+    (``kernel_vs_plain``); kernel ms by CUDA-graph replay (and by CUDA
+    events over host-issued launches), plain ms, and the bound from the
+    events the plain sweep counted. The counts are a device tensor: a
+    Python number would be copied to the card on every launch, and that
+    copy waits for the launch before it."""
     from bayesssm_tpu_torch.ops.gillespie import EventTally
 
     _, op, y2 = sir_inputs(dev, algorithm, gaps)
@@ -474,11 +494,14 @@ def sweep_check(dev, what, algorithm="BPF", gaps=None, reps=10,
         base * np.exp(0.1 * rng.normal(size=(CHAINS, 2))).astype(np.float32),
         device=dev,
     )
+    alive = (torch.full((CHAINS,), float(n), device=dev) if counts is None
+             else counts)
     tally = EventTally()
     err, bitwise, run = kernel_vs_plain(
         what, "bssm_sweep_sir", op, words_for(CHAINS, 1, dev), y2, theta,
-        n if counts is None else counts, n, plain_context=tally)
-    kernel_ms = cuda_ms(lambda: run(op), reps)
+        alive, n, plain_context=tally)
+    kernel_ms = graph_ms(lambda: run(op), reps)
+    events_ms = cuda_ms(lambda: run(op), reps)
     plain_ms = cuda_ms(lambda: run(op.sweep_reference), 1)
     t = y2.shape[0]
     stages = t * (1 if algorithm == "BPF" else 2)
@@ -488,7 +511,8 @@ def sweep_check(dev, what, algorithm="BPF", gaps=None, reps=10,
         alive="all" if counts is None else
         f"{int(counts.min())}..{int(counts.max())}",
         gaps=gaps, bitwise_equal=bitwise, max_abs_err=err,
-        kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        kernel_ms=kernel_ms, kernel_ms_events=events_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms,
         bound_by=bound_by, share_of_bound=bound_ms / kernel_ms,
         **tally.summary())
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
@@ -733,16 +757,11 @@ def phase_fused_resample_aux(dev):
     k3_check(dev, "fused_resample_aux", n, alive, aux=True)
 
 
-def phase_gillespie(dev, what="gillespie", n=PARTICLES):
-    """K4 against its plain version, bitwise, on 4096 chains of ``n``
-    lanes (the main path's shape by default)."""
-    from bayesssm_tpu_torch.ops import _build
-    from bayesssm_tpu_torch.ops.gillespie import (
-        EventTally,
-        gillespie_step,
-        gillespie_step_reference,
-    )
-
+def gillespie_inputs(dev, n=PARTICLES):
+    """Phase 8's K4 inputs on 4096 chains of ``n`` lanes: rates spread as
+    in phase 5, S uniform on 250..430, I on 0..119 (a wide spread of
+    events a lane), whole chains with I = 0 and three such lanes in every
+    chain. Returns ``(words, state, lam, gam)``."""
     rng = np.random.default_rng(9)
     base = np.array([0.5, 0.2], np.float32)
     theta = base * np.exp(0.1 * rng.normal(size=(CHAINS, 2)))
@@ -754,7 +773,41 @@ def phase_gillespie(dev, what="gillespie", n=PARTICLES):
     i[:, :3] = 0                     # and some lanes of every chain
     state = torch.as_tensor(np.stack([s, i], -1).astype(np.float32),
                             device=dev)
-    words = words_for(CHAINS, 4, dev)
+    return words_for(CHAINS, 4, dev), state, lam, gam
+
+
+def engine_day_states(dev):
+    """The states the engine path hands K4: the particles of phase 10's
+    SIR engine (4096 x 128, T = 10, rates spread as in phase 5) before each
+    day's transition, from ``bootstrap_filter(..., return_particles=
+    True)``. Returns ``(words [T, C, 2], states [T, C, N, 2], lam, gam)``,
+    one key per day."""
+    from bayesssm_tpu_torch.filters import bootstrap_filter
+    from bayesssm_tpu_torch.models.sir import simulate_sir, sir_model
+
+    _, y = simulate_sir(seed=1405)
+    fns, _, _ = sir_model(500, 70, transition="gillespie_pallas")
+    _, _, lam, gam = gillespie_inputs(dev)
+    res = bootstrap_filter(words_for(CHAINS, 41, dev), y, PARTICLES, *fns,
+                           theta=dict(lam=lam, gamma=gam),
+                           return_particles=True)
+    t = len(y)
+    states = res.particles_history[:, :t].transpose(0, 1).contiguous()
+    words = torch.stack([words_for(CHAINS, 100 + d, dev) for d in range(t)])
+    return words, states, lam, gam
+
+
+def phase_gillespie(dev, what="gillespie", n=PARTICLES):
+    """K4 against its plain version, bitwise, on 4096 chains of ``n``
+    lanes (the main path's shape by default), on phase 8's inputs."""
+    from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.ops.gillespie import (
+        EventTally,
+        gillespie_step,
+        gillespie_step_reference,
+    )
+
+    words, state, lam, gam = gillespie_inputs(dev, n)
     before = _build.launches["bssm_gillespie"]
     got = gillespie_step(words, state, lam, gam, 500)
     with EventTally() as tally:
@@ -786,6 +839,42 @@ def phase_gillespie(dev, what="gillespie", n=PARTICLES):
         **tally.summary())
     return dict(max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_gillespie_engine_days(dev):
+    """K4 on the states the engine path hands it (``engine_day_states``):
+    each day bitwise against its plain version, and the ten launches timed
+    together by CUDA-graph replay, with their bound from the events the
+    plain version counted. Prints per-launch figures."""
+    from bayesssm_tpu_torch.ops.gillespie import (
+        EventTally,
+        gillespie_step,
+        gillespie_step_reference,
+    )
+
+    words, states, lam, gam = engine_day_states(dev)
+    days = states.shape[0]
+    with EventTally() as tally:
+        for d in range(days):
+            want = gillespie_step_reference(words[d], states[d], lam, gam,
+                                            500)
+            got = gillespie_step(words[d], states[d], lam, gam, 500)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K4 differs on the engine's day {d}")
+
+    def kern():
+        for d in range(days):
+            gillespie_step(words[d], states[d], lam, gam, 500)
+
+    kernel_ms = graph_ms(kern, 10) / days
+    bound_ms, bound_by = bound(
+        days * 4 * (4 * CHAINS * PARTICLES + 4 * CHAINS),
+        (tally.fired, EVENT_INSTR))
+    say("gillespie_engine_days", shape=f"{days}x{CHAINS}x{PARTICLES}",
+        bitwise_equal=True, kernel_ms_per_launch=kernel_ms,
+        bound_ms_per_launch=bound_ms / days, bound_by=bound_by,
+        share_of_bound=bound_ms / days / kernel_ms, **tally.summary())
 
 
 def phase_engine_lgss(dev):
@@ -1474,6 +1563,8 @@ def main() -> int:
     say("build", seconds=f"{info['seconds']:.2f}", library=info["path"])
     for ln in ptx:
         print(f"[build] {ln}")
+    for name, occ in _build.occupancy().items():
+        say("build", kernel=name, **occ)
 
     main_counts = []   # the launch counts of every path run
     select_row = phase_select(dev)
@@ -1484,6 +1575,7 @@ def main() -> int:
     main_counts.append(run_counts)
     k3_row = phase_fused_resample(dev)
     k4_row = phase_gillespie(dev)
+    phase_gillespie_engine_days(dev)
     phase_engine_lgss(dev)
     run_counts, eng_pf, eng_state, prior_fns, transforms = (
         phase_engine_path(dev))

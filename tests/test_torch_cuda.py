@@ -586,3 +586,131 @@ def test_sinusoidal_engine_takes_k3_every_day(dev):
                            return_particles=False)
     np.testing.assert_allclose(res.loglike.cpu().numpy(),
                                cpu.loglike.numpy(), rtol=0, atol=1e-3)
+
+
+def _heavy_tail_state(c, n, dev, seed):
+    """K4 inputs with a heavy event tail: lanes at I = 1 (or a few more)
+    beside one lane a chain started at S = 380, I = 120, and every 16th
+    chain with I = 0 everywhere."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = torch.randint(300, 451, (c, n), device=dev, generator=gen)
+    i = torch.randint(1, 4, (c, n), device=dev, generator=gen)
+    heavy = torch.randint(0, n, (c,), device=dev, generator=gen)
+    rows = torch.arange(c, device=dev)
+    s[rows, heavy], i[rows, heavy] = 380, 120
+    i[::16] = 0
+    lam = 0.4 + 0.4 * torch.rand(c, device=dev, generator=gen)
+    gam = 0.1 + 0.2 * torch.rand(c, device=dev, generator=gen)
+    return torch.stack([s, i], dim=-1).to(torch.float32), lam, gam
+
+
+@pytest.mark.parametrize("n", [128, 1024])
+def test_gillespie_kernel_bitwise_on_a_heavy_tail(dev, n):
+    """K4 at the engine's widths, 4096 chains, where one lane of a chain
+    runs many times the events of the others: bitwise with its plain
+    version, which runs the chain's lanes together."""
+    from bayesssm_tpu_torch.ops.gillespie import (
+        gillespie_step,
+        gillespie_step_reference,
+    )
+
+    c = 4096
+    state, lam, gam = _heavy_tail_state(c, n, dev, 21 + n)
+    words = _words(c, 22, dev)
+    before = _build.launches["bssm_gillespie"]
+    got = gillespie_step(words, state, lam, gam, 500)
+    assert _build.launches["bssm_gillespie"] == before + 1
+    want = gillespie_step_reference(words, state, lam, gam, 500)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[::16], state[::16])
+
+
+@pytest.mark.parametrize("n", [96, 128, 1000])
+def test_gillespie_kernel_bitwise_when_warps_stop_apart(dev, n):
+    """K4 when the lanes of a chain stop at very different attempt counts
+    from warp to warp (a warp of I = 1 lanes, a warp of I = 0 lanes, the
+    rest at I up to 150), on lane counts whose warps span two chains
+    (96, 1000) or not (128)."""
+    from bayesssm_tpu_torch.ops.gillespie import (
+        gillespie_step,
+        gillespie_step_reference,
+    )
+
+    c = 256
+    gen = torch.Generator(device=dev).manual_seed(n)
+    s = torch.randint(250, 351, (c, n), device=dev, generator=gen)
+    i = torch.randint(0, 151, (c, n), device=dev, generator=gen)
+    i[:, :32] = 1
+    i[:, 32:64] = 0
+    state = torch.stack([s, i], dim=-1).to(torch.float32)
+    lam = 0.3 + 0.5 * torch.rand(c, device=dev, generator=gen)
+    gam = 0.1 + 0.2 * torch.rand(c, device=dev, generator=gen)
+    words = _words(c, 23, dev)
+    got = gillespie_step(words, state, lam, gam, 500)
+    want = gillespie_step_reference(words, state, lam, gam, 500)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [128, 1024])
+@pytest.mark.parametrize("algo,gapped", [("BPF", False), ("APF", False),
+                                         ("RMPF", False), ("BPF", True)])
+def test_sir_kernel_bitwise_with_spread_counts(dev, algo, gapped, n):
+    """K1 with the SIR functor (one block maximum of the lanes' event
+    groups per transition, the warp-level reductions and scan) against
+    the plain sweep, bit for bit, with per-chain counts spread over
+    50..min(n, 1000)."""
+    _, y = simulate_sir(seed=1405)
+    gaps = (1, 2, 1, 1, 3, 1, 1, 2, 1, 1) if gapped else None
+    op, obs = _sir_op(500, 70, 8, "stratified", algo == "RMPF", False, algo,
+                      2, gaps)
+    y2 = obs(torch.as_tensor(y, device=dev))
+    c = 128
+    gen = torch.Generator(device=dev).manual_seed(29)
+    theta = (torch.tensor([[0.5, 0.2]], device=dev)
+             * torch.exp(0.1 * torch.randn((c, 2), device=dev,
+                                           generator=gen))).contiguous()
+    counts = torch.linspace(50, min(n, 1000), c, device=dev).round()
+    words = _words(c, 30, dev)
+    before = _build.launches["bssm_sweep_sir"]
+    ll, est = op(words, y2, theta, counts, max_particles=n)
+    assert _build.launches["bssm_sweep_sir"] == before + 1
+    ll_p, est_p = op.sweep_reference(words, y2, theta, counts,
+                                     max_particles=n)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ll).all()
+    assert torch.equal(ll, ll_p) and torch.equal(est, est_p)
+
+
+@pytest.mark.parametrize("n", [20, 48, 64])
+def test_fused_resample_kernel_bitwise_narrow_blocks(dev, n):
+    """K3 on blocks of one and two warps (20 lanes run on 32 threads, 48
+    and 64 on 64), where the reductions and the scan have no or one
+    cross-warp level: bitwise with its plain version."""
+    from bayesssm_tpu_torch.ops.resampling_fused import (
+        fused_weight_resample_reference,
+        fused_weight_resample_seeded,
+    )
+
+    c, d = 256, 2
+    gen = torch.Generator(device=dev).manual_seed(n)
+    alive = torch.randint(n // 2, n + 1, (c,), device=dev,
+                          generator=gen).to(torch.float32)
+    lane = torch.arange(n, dtype=torch.float32, device=dev)
+    live = lane[None, :] < alive[:, None]
+    scale = 0.1 + 3.0 * torch.rand((c, 1), device=dev, generator=gen)
+    lw = torch.where(live, scale * torch.randn((c, n), device=dev,
+                                               generator=gen), -1e30)
+    parts = torch.randn((c, n, d), device=dev, generator=gen)
+    uni = torch.where(live, 1.0 / alive[:, None], 0.0)
+    thr = alive / 2.0
+    words = _words(c, 31, dev)
+    for always in (False, True):
+        got = fused_weight_resample_seeded(lw, parts, words, alive, uni, thr,
+                                           "stratified", always)
+        want = fused_weight_resample_reference(
+            lw, parts, uni, thr, key_words=words, num_alive=alive,
+            method="stratified", always_resample=always)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)

@@ -25,7 +25,8 @@ def _imports(path):
 
 def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "torch_custom_sweep_kernel.py"]
+        ROOT / "chip_smoke.py", ROOT / "examples" / "torch_custom_sweep_kernel.py",
+        *sorted((ROOT / "scripts").glob("torch_*.py"))]
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
