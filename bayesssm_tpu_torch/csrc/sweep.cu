@@ -1,28 +1,9 @@
 // The zoo's whole-sweep entries: the kernel template of sweep.cuh
 // instantiated with each functor of models.cuh (SIR, LGSS, LGSS-mv,
-// sinusoidal), and the selection device function alone (bssm_select).
-// Functors generated from a user's callbacks get entries of their own
-// (ops/_build.py::build_generated).
+// sinusoidal). Functors generated from a user's callbacks get entries of
+// their own (ops/_build.py::build_generated); the selection alone
+// (bssm_select) is in resample.cu.
 #include "sweep.cuh"
-
-namespace bssm {
-
-__global__ void select_kernel(const float* __restrict__ cdf,
-                              const float* __restrict__ pos,
-                              const float* __restrict__ vals,
-                              float* __restrict__ out, int R, int N, int D) {
-  extern __shared__ float s_cdf[];
-  const int r = blockIdx.x, l = threadIdx.x;
-  s_cdf[l] = cdf[(size_t)r * N + l];
-  __syncthreads();
-  const int m = select_index(s_cdf, N, pos[(size_t)r * N + l]);
-  for (int j = 0; j < D; ++j) {
-    const size_t row = ((size_t)j * R + r) * N;
-    out[row + l] = vals[row + m];
-  }
-}
-
-}  // namespace bssm
 
 extern "C" {
 
@@ -89,16 +70,6 @@ int bssm_sweep_sinusoidal(const int* seeds, const float* y,
   return bssm::launch_sweep(model, seeds, y, theta, alive, thr, ll, est,
                             gaps, times, C, N, T, mode, systematic,
                             algorithm, (cudaStream_t)stream);
-}
-
-// The selection device function alone, over R rows of N <= 1024 lanes and
-// D value columns laid out [D, R, N].
-int bssm_select(const float* cdf, const float* pos, const float* vals,
-                float* out, int R, int N, int D, void* stream) {
-  if (R < 1 || N < 1 || N > 1024 || D < 1) return (int)cudaErrorInvalidValue;
-  bssm::select_kernel<<<R, N, N * sizeof(float), (cudaStream_t)stream>>>(
-      cdf, pos, vals, out, R, N, D);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -10,9 +10,9 @@ lies on one CUDA device.
 
 Entries: ``bssm_sweep_sir``, ``bssm_sweep_lgss``, ``bssm_sweep_lgss_mv``
 and ``bssm_sweep_sinusoidal`` (K1 with each model functor, ``sweep.cu``),
-``bssm_select`` (K2 alone), ``bssm_fused_resample`` (K3, ``resample.cu``)
-and ``bssm_gillespie`` (K4, ``gillespie.cu``), with ``*_info`` entries
-that :func:`occupancy` reads. A functor generated from a user's sweep
+``bssm_fused_resample`` (K3) and ``bssm_select`` (K2 alone), both
+``resample.cu``, and ``bssm_gillespie`` (K4, ``gillespie.cu``), with
+``*_info`` entries that :func:`occupancy` reads. A functor generated from a user's sweep
 callbacks (``ops/sweep_codegen.py``) is compiled on its own by
 :func:`build_generated` into ``gen_<hash>.so`` with one entry,
 ``bssm_sweep_gen_<hash>``, the kernel template of ``csrc/sweep.cuh``
@@ -82,10 +82,12 @@ _ENTRIES = {
     "bssm_gillespie": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I, _P],
 }
 # Registers per thread and resident blocks per SM (out pointers): K1 with
-# the SIR functor at n lanes, and K4.
+# the SIR functor at n lanes, and K4; registers and resident warps per SM
+# of K3 at n lanes and d columns.
 _PI = ctypes.POINTER(ctypes.c_int)
 _INFO = {"bssm_sweep_sir_info": [_I, _PI, _PI],
-         "bssm_gillespie_info": [_PI, _PI]}
+         "bssm_gillespie_info": [_PI, _PI],
+         "bssm_fused_resample_info": [_I, _I, _PI, _PI]}
 
 # Launches of every generated functor count under one key.
 GENERATED = "bssm_sweep_generated"
@@ -199,7 +201,9 @@ def load_library():
 def occupancy() -> dict:
     """Registers per thread and resident blocks per SM of K4
     (``bssm_gillespie``) and of K1 with the SIR functor
-    (``bssm_sweep_sir``) at 128 and 1024 lanes, from the CUDA runtime."""
+    (``bssm_sweep_sir``) at 128 and 1024 lanes, and registers and resident
+    warps (chains) per SM of K3 (``bssm_fused_resample``) at 128 and 1024
+    lanes of 2 columns and 1024 lanes of 3, from the CUDA runtime."""
     lib = load_library()
     regs, blocks = ctypes.c_int(), ctypes.c_int()
     refs = (ctypes.byref(regs), ctypes.byref(blocks))
@@ -210,6 +214,11 @@ def occupancy() -> dict:
         _raise_on(lib.bssm_sweep_sir_info(n, *refs), "bssm_sweep_sir_info")
         out[f"bssm_sweep_sir@{n}"] = dict(registers=regs.value,
                                           blocks_per_sm=blocks.value)
+    for n, d in ((128, 2), (1024, 2), (1024, 3)):
+        _raise_on(lib.bssm_fused_resample_info(n, d, *refs),
+                  "bssm_fused_resample_info")
+        out[f"bssm_fused_resample@{n}x{d}"] = dict(
+            registers=regs.value, warps_per_sm=blocks.value)
     return out
 
 

@@ -5,7 +5,10 @@ For each output slot k the selection returns ``v[m_k]`` with
 bitonic lane-roll merge network (``merge_select_cols`` after
 ``resolve_carries``) because Mosaic has no gather; both only copy values,
 so a search and a gather give the same bits. The CUDA sweep kernel does
-the same with a binary search per thread (``csrc/select.cuh``).
+the same with a binary search per thread (``csrc/select.cuh``); the fused
+weight step and the standalone entry ``bssm_select`` run it one warp a row
+(``csrc/warp_reduce.cuh::search_slots``), with ``searchsorted``'s
+comparison, so a NaN entry or position selects as here.
 
 ``cdf_ext`` is non-decreasing and pinned to a sentinel above every
 position from the last alive lane on, so ``m_k <= N - 1`` on the sweep's
@@ -40,7 +43,7 @@ def select_cols(cdf_ext: torch.Tensor, pos: torch.Tensor, cols):
     """Selected ``[R, N]`` columns ``cols[j][m_k]`` (module docstring).
 
     A CPU tensor takes the plain version; a CUDA tensor launches
-    ``bssm_select`` (the selection device function of the sweep kernel).
+    ``bssm_select`` (one warp a row, ``csrc/resample.cu``).
     """
     cols = tuple(cols)
     if cdf_ext.device.type == "cpu":

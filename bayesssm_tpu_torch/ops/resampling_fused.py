@@ -26,8 +26,10 @@ them. With ``always_resample`` every chain resamples; otherwise a chain
 resamples when its ``ess < threshold``, and returns its particles and
 weights unchanged when not.
 
-Sums over lanes follow the kernel's halving tree (``tree_sum``), so the
-CUDA kernel (``csrc/resample.cu``) and :func:`fused_weight_resample_reference`
+Sums over lanes follow the kernel's halving tree (``tree_sum``) and the
+CDF its doubling scan (``running_cdf``), and the search is
+``searchsorted``'s, so the CUDA kernel (``csrc/resample.cu``: one warp a
+chain, its lanes in registers) and :func:`fused_weight_resample_reference`
 agree bit for bit on the card. The public functions route by device: CPU
 tensors take the plain version, CUDA tensors launch the kernel or raise.
 """
@@ -50,7 +52,7 @@ __all__ = [
     "inkernel_positions",
 ]
 
-# One chain's lanes share one thread block.
+# One chain's lanes share one warp, at most 32 lanes a thread.
 MAX_FUSED_LANES = 1024
 POSITION_METHODS = ("stratified", "systematic", "multinomial")
 _SENTINEL = 1.5

@@ -15,7 +15,8 @@ Phases:
 1. device name, count, and ``nvidia-smi`` name and power limit;
 2. kernel build: seconds, registers and spills from ``-Xptxas -v``, and
    the registers and resident blocks per SM of K4 and of K1 with the SIR
-   functor at 128 and 1024 lanes from the CUDA runtime
+   functor at 128 and 1024 lanes, and K3's registers and resident warps
+   (one chain each) per SM at 128 and 1024 lanes, from the CUDA runtime
    (``_build.occupancy``);
 3. ``bssm_select`` against searchsorted + gather, bitwise, N in {128, 1024};
 4. LGSS sweep kernel against the plain sweep (C=512, N=1024, T=20, SISR):
@@ -147,7 +148,9 @@ sys.path.insert(0, str(ROOT))
 ROUTE = "cuda"
 SWEEP_SOURCE = "bayesssm_tpu_torch/csrc/sweep.cuh"
 SWEEP_REPLACES = "bayesssm_tpu/ops/sweep_builder.py:146"
-SELECT_SOURCE = "bayesssm_tpu_torch/csrc/select.cuh"
+# K2 as its standalone entry and K3 run it (one warp a row); inside K1 it
+# is csrc/select.cuh::select_index.
+SELECT_SOURCE = "bayesssm_tpu_torch/csrc/warp_reduce.cuh"
 SELECT_REPLACES = "bayesssm_tpu/ops/merge_select.py:131"
 RESAMPLE_SOURCE = "bayesssm_tpu_torch/csrc/resample.cu"
 RESAMPLE_REPLACES = "bayesssm_tpu/ops/resampling_pallas.py:60"

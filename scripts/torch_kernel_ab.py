@@ -3,12 +3,17 @@
 
 ``python3 scripts/torch_kernel_ab.py OTHER_ROOT`` runs, in the order
 other, this, this, other, one process per turn with its working directory
-at that checkout's root. Each process builds that checkout's kernels and
-times K1 with the SIR functor by CUDA-graph replay (BPF, APF, RMPF and
-gapped at phase 5's shape, and APF at phase 16's 1024-lane bound), then
-runs its own ``chip_smoke.py`` phases that hold and time K3 (phase 7),
-K4 (phase 8), the 1024-lane bound (phase 16) and K1c (phase 17). Every timing first calls its function for 1 s, so that both
-checkouts are timed at the card's working clock. Each output line is
+at that checkout's root. Each process builds that checkout's kernels,
+runs its own ``chip_smoke.py`` phase that holds and times K2 alone
+(``bssm_select``, phase 3), times K1 with the SIR functor by CUDA-graph
+replay (BPF, APF, RMPF and gapped at phase 5's shape, and APF at phase
+16's 1024-lane bound), then runs its phases that hold and time K3 (phase
+7, and with the aux column, phase 13), K4 (phase 8), the 1024-lane bound
+(phase 16: K1 APF, K3 and K3 with the aux column, K4) and K1c (phase 17),
+and last the MH samples/s of the engine path (phases 10 and 14, and 19's
+sinusoidal model) beside the sweep path's (14, 19). Every timing first
+calls its function for 1 s, so that both checkouts are timed at the
+card's working clock. Each output line is
 prefixed with ``[ab <root name> <turn>]``; a turn's ``[build]`` lines give
 its registers per kernel. Fails without a CUDA device or when a turn
 fails.
@@ -59,6 +64,9 @@ if hasattr(_build, "occupancy"):
         cs.say("build", kernel=name, **occ)
 
 
+cs.phase_select(dev)
+
+
 # K1 SIR timed by CUDA-graph replay with the counts on the card, as both
 # checkouts' APIs take them.
 def k1_sir(what, algorithm="BPF", gaps=None, n=cs.PARTICLES, counts=None):
@@ -84,9 +92,13 @@ for what, algorithm, gaps in (("k1_sir_apf", "APF", None),
     k1_sir(what, algorithm, gaps)
 k1_sir("k1_sir_apf_1024", "APF", n=1024, counts=cs.spread_counts(dev))
 cs.phase_fused_resample(dev)
+cs.phase_fused_resample_aux(dev)
 cs.phase_gillespie(dev)
 cs.phase_lane_bound(dev)
 cs.phase_sinusoidal_kernel(dev)
+cs.phase_engine_path(dev)
+cs.phase_filters_mh(dev)
+cs.phase_sinusoidal_mh(dev)
 """
 
 

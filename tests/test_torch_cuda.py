@@ -714,3 +714,136 @@ def test_fused_resample_kernel_bitwise_narrow_blocks(dev, n):
             method="stratified", always_resample=always)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+# The warp form of K3 and of bssm_select (one warp a row, V = 1 .. 32 lanes
+# a thread): lane counts on both sides of each V, rows whose N D floats are
+# not a multiple of 16 bytes, chain counts that leave the last block part
+# empty, and chains that keep, resample, or meet -inf and NaN weights.
+WARP_LANES = [1, 20, 33, 100, 128, 129, 200, 512, 1000, 1024]
+
+
+def _same(a, b):
+    """Equal values (-0 == +0), NaN where NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def _k3_case(c, n, d, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    alive = torch.randint(max(n // 2, 1), n + 1, (c,), device=dev,
+                          generator=gen).to(torch.float32)
+    lane = torch.arange(n, dtype=torch.float32, device=dev)
+    live = lane[None, :] < alive[:, None]
+    scale = 0.1 + 3.0 * torch.rand((c, 1), device=dev, generator=gen)
+    lw = torch.where(live, scale * torch.randn((c, n), device=dev,
+                                               generator=gen), -1e30)
+    if c >= 3:
+        lw[0] = float("-inf")              # every weight NaN after the shift
+        lw[1, n // 2] = float("nan")
+    parts = torch.randn((c, n, d), device=dev, generator=gen)
+    uni = torch.where(live, 1.0 / alive[:, None], 0.0)
+    return lw, parts, uni, alive
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5])
+@pytest.mark.parametrize("n", WARP_LANES)
+def test_fused_resample_warp_form_bitwise(dev, n, d):
+    """K3 against its plain version over lane counts, columns, chain counts
+    and thresholds that keep every chain, resample every one, or split
+    them; host and in-kernel positions; adaptive and forced."""
+    from bayesssm_tpu_torch.ops.resampling import _positions
+    from bayesssm_tpu_torch.ops.resampling_fused import (
+        POSITION_METHODS,
+        fused_weight_resample,
+        fused_weight_resample_reference,
+        fused_weight_resample_seeded,
+    )
+
+    calls = 0
+    before = _build.launches["bssm_fused_resample"]
+    for c in (1, 3, 4097):
+        lw, parts, uni, alive = _k3_case(c, n, d, 7 * n + d + c, dev)
+        words = _words(c, n + d, dev)
+        for j, (thr, always) in enumerate((
+                (torch.zeros(c, device=dev), False),           # all kept
+                (torch.full((c,), 2.0e3, device=dev), False),  # all resample
+                (alive / 2.0, False), (alive / 2.0, True))):   # mixed; forced
+            method = POSITION_METHODS[(j + n) % 3]
+            got = fused_weight_resample_seeded(lw, parts, words, alive, uni,
+                                               thr, method, always)
+            want = fused_weight_resample_reference(
+                lw, parts, uni, thr, key_words=words, num_alive=alive,
+                method=method, always_resample=always)
+            pos = _positions(words, method, n, alive)
+            got_h = fused_weight_resample(lw, parts, pos, uni, thr, always)
+            want_h = fused_weight_resample_reference(
+                lw, parts, uni, thr, positions=pos, always_resample=always)
+            calls += 2
+            torch.cuda.synchronize()
+            for a, b in zip((*got, *got_h), (*want, *want_h)):
+                assert _same(a, b), (c, method, always)
+    assert _build.launches["bssm_fused_resample"] == before + calls
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5])
+@pytest.mark.parametrize("n", WARP_LANES)
+def test_select_warp_form_bitwise(dev, n, d):
+    """``bssm_select`` against searchsorted + gather over the same lane
+    counts, columns and row counts; sorted and unsorted positions, a row
+    whose CDF is NaN up to the sentinel, and a NaN position."""
+    for r in (1, 3, 4097):
+        gen = torch.Generator(device=dev).manual_seed(n * 7 + d + r)
+        w = torch.rand((r, n), device=dev, generator=gen)
+        w = torch.where(torch.rand((r, n), device=dev, generator=gen) < 0.3,
+                        0.0, w)
+        w = w / w.sum(dim=1, keepdim=True).clamp(min=1e-30)
+        lane = torch.arange(n, dtype=torch.float32, device=dev)[None, :]
+        alive = torch.randint(max(n // 2, 1), n + 1, (r, 1), device=dev,
+                              generator=gen).to(torch.float32)
+        cdf = cdf_ext(w, lane, alive)
+        if r >= 3:
+            cdf[1] = torch.where(lane[0] >= alive[1] - 1.0, 1.5,
+                                 float("nan"))
+        pos = torch.rand((r, n), device=dev, generator=gen).sort(dim=1).values
+        if r >= 3:
+            pos[2] = pos[2][torch.randperm(n, device=dev, generator=gen)]
+            pos[0, 0] = float("nan")
+        cols = [torch.randn((r, n), device=dev, generator=gen)
+                for _ in range(d)]
+        before = _build.launches["bssm_select"]
+        got = select_cols(cdf, pos, cols)
+        assert _build.launches["bssm_select"] == before + 1
+        for a, b in zip(got, select_cols_reference(cdf, pos, cols)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [60])
+def test_fused_resample_and_select_with_rows_past_shared_memory(dev, d):
+    """Rows of N D floats too long for a block's shared memory (1000 x 60
+    floats, 240 KB): K3 takes the warp form and gathers in place, and
+    ``bssm_select`` reads its value rows in place; both bitwise."""
+    from bayesssm_tpu_torch.ops.resampling_fused import (
+        fused_weight_resample_reference,
+        fused_weight_resample_seeded,
+    )
+
+    c, n = 67, 1000
+    lw, parts, uni, alive = _k3_case(c, n, d, 61, dev)
+    words = _words(c, 62, dev)
+    for always in (False, True):
+        got = fused_weight_resample_seeded(lw, parts, words, alive, uni,
+                                           alive / 2.0, "stratified", always)
+        want = fused_weight_resample_reference(
+            lw, parts, uni, alive / 2.0, key_words=words, num_alive=alive,
+            method="stratified", always_resample=always)
+        torch.cuda.synchronize()
+        assert all(_same(a, b) for a, b in zip(got, want))
+    lane = torch.arange(n, dtype=torch.float32, device=dev)[None, :]
+    cdf = cdf_ext(torch.softmax(lw.nan_to_num(0.0, 0.0, 0.0), dim=1), lane,
+                  alive[:, None])
+    pos = torch.rand((c, n), device=dev)
+    cols = list(parts.permute(2, 0, 1).contiguous().unbind(0))
+    got = select_cols(cdf, pos, cols)
+    for a, b in zip(got, select_cols_reference(cdf, pos, cols)):
+        assert torch.equal(a, b)
