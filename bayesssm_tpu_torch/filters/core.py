@@ -39,8 +39,13 @@ a ``where`` per chain, as in the JAX engine.
   ``k_res``'s words itself;
 * ``"auto"`` — the in-kernel fused step when the tensors lie on a CUDA
   device and the JAX gate holds (a lane count that is a multiple of 128
-  and at most 1024, not SIS, float32 particles), the portable path
-  otherwise.
+  and at most 1024, not SIS, not Metropolis, float32 particles), the
+  portable path otherwise.
+
+``resample_fn="metropolis"`` (``ops/resampling.py::
+metropolis_resample_indices``) runs on the portable path only: K3 selects
+by inverse CDF, so an explicit fused route with it raises ``ValueError``
+with the JAX engine's message.
 
 A fused step launches its CUDA kernel on CUDA tensors and runs its plain
 version on CPU tensors; no value selects the plain version on the card.
@@ -63,9 +68,8 @@ after a resample use the uniform weights), fresh weights each day unless
 ``carry_weights``, and degenerate weights (every log-weight below -1e8)
 giving ``-inf`` with zeroed weights and ESS from that day on.
 
-Not ported yet: ``particle_axis`` sharding and
-``resample_fn="metropolis"``; each raises ``NotImplementedError`` naming
-its ROADMAP item.
+Not ported yet: ``particle_axis`` sharding, which raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -277,10 +281,6 @@ def particle_filter_core(
         raise NotImplementedError(
             "particle_axis sharding is not ported yet (ROADMAP Queue 1, "
             "multi-GPU)")
-    if resample_fn == "metropolis":
-        raise NotImplementedError(
-            "metropolis resampling is not ported yet (ROADMAP Queue 1, "
-            "metropolis resampling)")
 
     theta = dict(theta or {})
     if max_particles is None:
@@ -356,12 +356,18 @@ def particle_filter_core(
             and n % 128 == 0
             and n <= MAX_FUSED_LANES
             and resample_algorithm != "SIS"
+            and resample_fn != "metropolis"
             and dtype == torch.float32
         )
     elif use_fused == "interpret-inkernel":
         fused_enabled = True
     else:
         fused_enabled = bool(use_fused)
+    if fused_enabled and resample_fn == "metropolis":
+        raise ValueError(
+            "the fused Pallas path implements inverse-CDF selection only; "
+            "use_fused must be False/'auto' with resample_fn='metropolis'"
+        )
     always_resample = algorithm == "RMPF" or resample_algorithm == "SISR"
     zero_thr = torch.zeros_like(n_f)
 

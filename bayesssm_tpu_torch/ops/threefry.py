@@ -32,8 +32,9 @@ tests run against); the tests pin that setting.
 Keys are ``[..., 2]`` int64 tensors that hold uint32 words (the
 ``jax.random.key_data`` of each chain's key); every function maps over the
 leading axes, so a ``[C, 2]`` batch of chain keys gives ``[C, *shape]``
-draws. Words are kept in int64 with every sum and rotation reduced mod
-2**32, so no operation overflows.
+draws. Keys and the words the functions return are int64 with every
+value in [0, 2**32); the rounds run on int32 words, whose sums wrap mod
+2**32, in place on the output words (``_threefry_i32``).
 """
 
 from __future__ import annotations
@@ -77,23 +78,45 @@ _ERFINV_LARGE_W = tuple(float(np.float32(c)) for c in (
     0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) & MASK32) | (x >> (32 - r))
+def _as_i32(v):
+    """uint32 words (an int64 tensor or an int) as int32 two's complement."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.int32)
+    v = int(v) & MASK32
+    return v - (1 << 32) if v >> 31 else v
+
+
+def _threefry_i32(k0, k1, c0, c1):
+    """:func:`threefry2x32` on int32 words: int32 sums wrap mod 2**32, and
+    ``>>`` is arithmetic, so a rotation masks the bits the sign shifts in.
+    The rounds run in place on the two ``[*broadcast]`` output words."""
+    k0, k1, c0, c1 = (_as_i32(v) for v in (k0, k1, c0, c1))
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = c0 + ks[0]
+    x1 = c1 + ks[1]
+    shape = torch.broadcast_shapes(x0.shape, x1.shape)
+    x0 = x0.expand(shape).contiguous()
+    x1 = x1.expand(shape).contiguous()
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1)
+            low = (x1 >> (32 - r)).bitwise_and_((1 << r) - 1)
+            x1.bitwise_left_shift_(r).bitwise_or_(low).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3])
+        x1.add_(ks[(i + 2) % 3] + (i + 1))
+    return x0, x1
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 words as uint32 values in int64."""
+    return x.to(torch.int64) & MASK32
 
 
 def threefry2x32(k0, k1, c0, c1):
     """Threefry-2x32 of counter words ``(c0, c1)`` under key ``(k0, k1)``;
     all four broadcast against each other. Returns the two output words."""
-    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
-    x0 = (c0 + ks[0]) & MASK32
-    x1 = (c1 + ks[1]) & MASK32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & MASK32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK32
-    return x0, x1
+    x0, x1 = _threefry_i32(k0, k1, c0, c1)
+    return _u32(x0), _u32(x1)
 
 
 def key(seed: int, device=None) -> torch.Tensor:
@@ -123,19 +146,20 @@ def _shape(shape) -> tuple:
 
 
 def _blocks(keys: torch.Tensor, shape: tuple):
-    """Threefry of every flat index of ``shape`` under every key."""
+    """Threefry of every flat index of ``shape`` under every key, as int32
+    words (:func:`_threefry_i32`)."""
     lead = keys.shape[:-1]
     k0 = keys[..., 0].reshape(lead + (1,) * len(shape))
     k1 = keys[..., 1].reshape(lead + (1,) * len(shape))
     idx = torch.arange(math.prod(shape), dtype=torch.int64,
                        device=keys.device).reshape(shape)
-    return threefry2x32(k0, k1, idx >> 32, idx & MASK32)
+    return _threefry_i32(k0, k1, idx >> 32, idx & MASK32)
 
 
 def split(keys: torch.Tensor, shape=2) -> torch.Tensor:
     """``[..., *shape, 2]`` subkeys (``jax.random.split(key, shape)``)."""
     b0, b1 = _blocks(keys, _shape(shape))
-    return torch.stack([b0, b1], dim=-1)
+    return torch.stack([_u32(b0), _u32(b1)], dim=-1)
 
 
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
@@ -153,15 +177,14 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
 def random_bits(keys: torch.Tensor, shape=()) -> torch.Tensor:
     """``[..., *shape]`` uint32 words in int64 (32-bit ``random_bits``)."""
     b0, b1 = _blocks(keys, _shape(shape))
-    return b0 ^ b1
+    return _u32(b0 ^ b1)
 
 
 def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniforms on ``[minval, maxval)`` (``jax.random.uniform``)."""
-    bits = random_bits(keys, shape)
-    floats = ((bits >> 9) | _ONE_F32_BITS).to(torch.int32).view(
-        torch.float32) - 1.0
+    b0, b1 = _blocks(keys, _shape(shape))
+    floats = _to_uniform(b0 ^ b1)
     lo = np.float32(minval)
     span = np.float32(maxval) - lo
     if span == 1.0 and lo == 0.0:
@@ -236,8 +259,9 @@ def normal(keys: torch.Tensor, shape=()) -> torch.Tensor:
 
 
 def _to_uniform(bits: torch.Tensor) -> torch.Tensor:
-    """float32 on [0, 1) from 32-bit words (``uniform``'s mantissa fill)."""
-    return ((bits >> 9) | _ONE_F32_BITS).to(torch.int32).view(
+    """float32 on [0, 1) from 32-bit words, int32 or uint32 in int64
+    (``uniform``'s mantissa fill)."""
+    return (((bits >> 9) & 0x7FFFFF) | _ONE_F32_BITS).to(torch.int32).view(
         torch.float32) - 1.0
 
 
@@ -316,8 +340,8 @@ def _stirling_approx_tail(k: torch.Tensor) -> torch.Tensor:
 def _lane_uniforms(sub: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
     """``uniform(sub, shape)[lane]``: uniforms drawn with subkeys
     ``sub [..., 2]`` at flat lane indices ``lanes`` (broadcast together)."""
-    b0, b1 = threefry2x32(sub[..., 0], sub[..., 1], lanes >> 32,
-                          lanes & MASK32)
+    b0, b1 = _threefry_i32(sub[..., 0], sub[..., 1], lanes >> 32,
+                           lanes & MASK32)
     return _to_uniform(b0 ^ b1)
 
 

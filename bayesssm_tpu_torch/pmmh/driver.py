@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import pathlib
 import warnings
 from typing import Optional
 
@@ -78,6 +79,11 @@ from bayesssm_tpu_torch.pmmh.tuning import (
     _make_pf_loglike,
     default_tune_control,
     run_pilot_chain,
+)
+from bayesssm_tpu_torch.utils.checkpoint import (
+    FORMAT_VERSION,
+    load_checkpoint,
+    save_checkpoint,
 )
 from bayesssm_tpu_torch.utils.signatures import check_params_match
 from bayesssm_tpu_torch.utils.timing import PhaseTimer
@@ -414,37 +420,44 @@ def _root_key(seed):
     return root, None
 
 
-def _sample_in_chunks(pf, state, m, burn_in, prior_fns, transforms,
+def _sample_in_chunks(pf, state, m, keep_from, prior_fns, transforms,
                       jacobian_convention, return_latent_state_est,
-                      chunk_size, verbose):
-    """The post-burn-in samples ``[C, m - burn_in, P]`` (and latent states)
-    of ``m`` samples per chain from ``state``, whose log-likelihood is set:
-    sample 0 is its theta, samples ``1 .. m-1`` come from
-    :func:`sample_chains` called again on the returned state, chunk by
-    chunk. Returns ``(samples, latent or None, accepted [C])``.
+                      chunk_size, verbose, done=1, samples=None,
+                      latents=None, accepted=None, on_chunk=None):
+    """Samples ``keep_from .. m - 1`` ``[C, m - keep_from, P]`` (and latent
+    states) of ``m`` samples per chain, of which ``done`` exist: ``state``
+    (its log-likelihood set) is sample ``done - 1``, and samples ``done ..
+    m - 1`` come from :func:`sample_chains` called again on the returned
+    state, chunk by chunk. Returns ``(samples, latent or None, accepted
+    [C])``.
 
-    ``chunk_size`` ``None`` runs the burn-in in one chunk and the rest in
-    chunks of at most ``SAMPLE_CHUNK`` steps; otherwise every chunk is
-    ``chunk_size`` steps, and ``verbose`` prints the JAX driver's progress
-    line after each.
+    A resumed run passes the blocks of samples (and latent states) it
+    holds in ``samples``/``latents`` and its accepted steps in
+    ``accepted``; the new blocks and counts are added to them.
+    ``chunk_size`` ``None`` runs the samples before ``keep_from`` in one
+    chunk and the rest in chunks of at most ``SAMPLE_CHUNK`` steps;
+    otherwise every chunk is ``chunk_size`` steps, and ``verbose`` prints
+    the JAX driver's progress line after each. ``on_chunk(state, done,
+    samples, latents, accepted)`` is called after each chunk.
     """
-    samples, latents = [], []
-    if burn_in == 0:
+    samples = list(samples or [])
+    latents = list(latents or [])
+    if done == 1 and keep_from == 0:
         samples.append(state.theta.cpu().numpy()[:, None])
         if return_latent_state_est:
             latents.append(state.se.cpu().numpy()[:, None])
-    accepted = np.zeros(state.theta.shape[0], dtype=np.int64)
-    done = 1                      # samples so far: the initial one
+    accepted = (np.zeros(state.theta.shape[0], dtype=np.int64)
+                if accepted is None else accepted.copy())
     while done < m:
         if chunk_size is not None:
             length = min(chunk_size, m - done)
-        elif done < burn_in:
-            length = burn_in - done + 1
+        elif done < keep_from:
+            length = keep_from - done + 1
         else:
             length = min(SAMPLE_CHUNK, m - done)
         # Local sample j of the chunk is global sample done - 1 + j; j = 0
         # is the state it starts from, recorded already.
-        first_keep = max(1, burn_in - done + 1)
+        first_keep = max(1, keep_from - done + 1)
         local_burn = min(first_keep, length)
         res = sample_chains(pf, state, length + 1, local_burn, prior_fns,
                             transforms, jacobian_convention,
@@ -463,9 +476,14 @@ def _sample_in_chunks(pf, state, m, burn_in, prior_fns, transforms,
                 f"Sampling: {done}/{m} steps — acceptance "
                 f"chunk {chunk_acc:.3f}, cumulative {cum_acc:.3f}"
             )
+        if on_chunk is not None:
+            on_chunk(state, done, samples, latents, accepted)
+    p = state.theta.shape[1]
+    post = (np.concatenate(samples, axis=1) if samples
+            else np.zeros((state.theta.shape[0], 0, p), np.float32))
     latent = (np.concatenate(latents, axis=1)
-              if return_latent_state_est else None)
-    return np.concatenate(samples, axis=1), latent, accepted
+              if return_latent_state_est and latents else None)
+    return post, latent, accepted
 
 
 def _resolve_device(device) -> torch.device:
@@ -533,13 +551,21 @@ def pmmh(
     prints the JAX driver's progress line after each; otherwise the
     burn-in runs in one chunk and the rest in chunks of at most 256 steps.
     Chunking changes no sample. ``timings`` holds the seconds of
-    ``"tuning"``, ``"compile"`` (building and loading the CUDA kernels,
-    when this call did so; else 0) and ``"sampling"``.
+    ``"tuning"`` (absent on resume), ``"compile"`` (building and loading
+    the CUDA kernels, when this call did so; else 0) and ``"sampling"``.
 
-    Not ported yet: ``mesh`` (ROADMAP Queue 1 item 6, multi-GPU) and
-    ``checkpoint_every``/``checkpoint_path``/``resume`` (item 5,
-    checkpointing); each raises ``NotImplementedError``. ``chain_axis`` and
-    ``particle_axis`` name mesh axes and are read only with a mesh.
+    ``checkpoint_path`` cuts sampling into chunks of ``checkpoint_every``
+    (else ``progress_every``, else all) steps and writes a snapshot after
+    each (``utils/checkpoint.py``: the samples so far, burn-in included,
+    the chain state and the tuned proposal). ``resume=True`` continues
+    from the snapshot at ``checkpoint_path`` without tuning. A step's
+    draws depend only on the chain words and the step's index (module
+    docstring), so a resumed run equals the uninterrupted one bit for bit,
+    whatever the chunks of either.
+
+    Not ported yet: ``mesh`` (ROADMAP Queue 1 item 6, multi-GPU), which
+    raises ``NotImplementedError``. ``chain_axis`` and ``particle_axis``
+    name mesh axes and are read only with a mesh.
     """
     # ---------------- validation ----------------
     if not isinstance(m, (int, np.integer)) or m < 1:
@@ -589,13 +615,31 @@ def pmmh(
     if mesh is not None:
         raise NotImplementedError(
             "mesh is not ported yet (ROADMAP Queue 1 item 6, multi-GPU)")
-    if checkpoint_every is not None or checkpoint_path is not None or resume:
-        raise NotImplementedError(
-            "checkpoint_every, checkpoint_path and resume are not ported "
-            "yet (ROADMAP Queue 1 item 5, checkpointing)")
     del chain_axis, particle_axis
 
     dev = _resolve_device(device)
+
+    # ---------------- resume path ----------------
+    resume_state = None
+    if resume:
+        if checkpoint_path is None or not pathlib.Path(
+                checkpoint_path).exists():
+            raise ValueError(
+                "resume=True requires an existing checkpoint_path"
+            )
+        resume_state = load_checkpoint(checkpoint_path)
+        if resume_state["format_version"] != FORMAT_VERSION:
+            raise ValueError(
+                f"checkpoint {checkpoint_path} has format version "
+                f"{resume_state['format_version']}: its key_data are the "
+                "JAX driver's threefry keys, not this driver's chain "
+                "words, so its chains cannot be continued here")
+        if verbose:
+            print(
+                f"Resuming from {checkpoint_path} at step "
+                f"{resume_state['step']}/{m}"
+            )
+
     root_key, seed_out = _root_key(seed)
     chain_keys = threefry.fold_in(root_key.to(dev),
                                   torch.arange(num_chains, device=dev))
@@ -616,25 +660,35 @@ def pmmh(
             compile_s = timer.timings["compile"]
 
     # ---------------- phase 1: pilot tuning, batched over chains ---------
-    if verbose:
-        print(f"Running pilot chains for tuning ({num_chains} chains)...")
-    with timer.phase("tuning"):
-        tuned = run_pilot_chain(
-            chain_keys, y_host, param_names, model_fns, prior_fns, theta0,
-            transforms, tune_control, obs_times=obs_times,
-            algorithm=algorithm, jacobian_convention=jacobian_convention,
-            carry_weights=carry_weights, pf_impl=pf_factory,
-        )
-    # The one host sync between the phases.
-    theta_mean = tuned["pilot_theta_mean"].cpu().numpy().astype(np.float64)
-    theta_cov = tuned["pilot_theta_cov"].cpu().numpy().astype(np.float64)
-    target_n = tuned["target_n"].cpu().numpy().astype(np.int64)
+    if resume_state is None:
+        if verbose:
+            print(f"Running pilot chains for tuning ({num_chains} "
+                  "chains)...")
+        with timer.phase("tuning"):
+            tuned = run_pilot_chain(
+                chain_keys, y_host, param_names, model_fns, prior_fns,
+                theta0, transforms, tune_control, obs_times=obs_times,
+                algorithm=algorithm,
+                jacobian_convention=jacobian_convention,
+                carry_weights=carry_weights, pf_impl=pf_factory,
+            )
+        # The one host sync between the phases.
+        theta_mean = tuned["pilot_theta_mean"].cpu().numpy().astype(
+            np.float64)
+        theta_cov = tuned["pilot_theta_cov"].cpu().numpy().astype(
+            np.float64)
+        target_n = tuned["target_n"].cpu().numpy().astype(np.int64)
 
-    if verbose:
-        for c in range(num_chains):
-            print(f"Chain {c + 1}: pilot posterior mean {theta_mean[c]}")
-            print(f"Chain {c + 1}: pilot covariance\n{theta_cov[c]}")
-        print(f"Using {target_n} particles for PMMH:")
+        if verbose:
+            for c in range(num_chains):
+                print(f"Chain {c + 1}: pilot posterior mean "
+                      f"{theta_mean[c]}")
+                print(f"Chain {c + 1}: pilot covariance\n{theta_cov[c]}")
+            print(f"Using {target_n} particles for PMMH:")
+    else:
+        meta = resume_state["meta"]
+        theta_mean = np.asarray(meta["theta_mean"])
+        target_n = np.asarray(meta["target_n"], dtype=np.int64)
 
     # ---------------- phase 2: the main chains ----------------
     max_particles = _particle_lane_bound(int(target_n.max()))
@@ -643,23 +697,85 @@ def pmmh(
         resample_algorithm, resample_fn, carry_weights,
         max_particles=max_particles,
     )
-    mh_keys, k0 = threefry.split(chain_keys).unbind(1)
-    state = chain_state_from_pilot(theta_mean, theta_cov, target_n,
-                                   transforms, mh_keys.cpu().numpy(), dev)
-    ll0, se0 = pf(k0, state.theta, state.n)
-    state = dataclasses.replace(
-        state, ll=ll0, se=se0 if return_latent_state_est else None)
+    if resume_state is None:
+        mh_keys, k0 = threefry.split(chain_keys).unbind(1)
+        state = chain_state_from_pilot(theta_mean, theta_cov, target_n,
+                                       transforms, mh_keys.cpu().numpy(),
+                                       dev)
+        ll0, se0 = pf(k0, state.theta, state.n)
+        state = dataclasses.replace(
+            state, ll=ll0, se=se0 if return_latent_state_est else None)
+        steps_done, prior, prior_latent, accepted0 = 1, [], [], None
+    else:
+        # A snapshot records latent-state history only when the run that
+        # wrote it collected it, so the flip to collecting is refused.
+        if (return_latent_state_est
+                and "state_samples" not in resume_state):
+            raise ValueError(
+                "resume=True with return_latent_state_est=True, but the "
+                "checkpoint was written without latent-state collection; "
+                "resume with return_latent_state_est=False or restart"
+            )
+        state = chain_state_from_numpy(
+            resume_state["theta"], meta["prop_factors"], target_n,
+            resume_state["keys"], dev)
+        state = dataclasses.replace(
+            state,
+            ll=torch.as_tensor(resume_state["loglike"], device=dev),
+            se=(torch.as_tensor(resume_state["state_est"], device=dev)
+                if return_latent_state_est else None),
+            step=int(meta["mh_step"]))
+        steps_done = resume_state["step"]
+        prior = [resume_state["samples"]]
+        prior_latent = ([resume_state["state_samples"]]
+                        if return_latent_state_est else [])
+        accepted0 = np.asarray(meta["accept_total"]).astype(np.int64)
 
     if verbose:
         print("Running Particle MCMC chains with tuned settings...")
     if progress_every is None and verbose:
         progress_every = min(500, m)
+    on_chunk = None
+    chunk_size = progress_every
+    keep_from = burn_in
+    if checkpoint_path is not None:
+        # Every chunk ends in a snapshot of all samples so far, burn-in
+        # included, as the JAX driver writes it.
+        chunk_size = (checkpoint_every or progress_every
+                      or (m - steps_done) or 1)
+        keep_from = 0
+
+        def on_chunk(st, done, samples, latents, accepted):
+            save_checkpoint(
+                checkpoint_path,
+                keys=st.words,
+                theta=st.theta,
+                loglike=st.ll,
+                state_est=st.se if return_latent_state_est else None,
+                samples=np.concatenate(samples, axis=1),
+                state_samples=(np.concatenate(latents, axis=1)
+                               if return_latent_state_est else None),
+                step=done,
+                meta={
+                    "theta_mean": theta_mean,
+                    "target_n": target_n,
+                    "prop_factors": st.factors,
+                    "accept_total": accepted.astype(np.float64),
+                    "mh_step": st.step,
+                },
+            )
+
     with timer.phase("sampling"):
         post, state_chains, accept_total = _sample_in_chunks(
-            pf, state, m, burn_in, prior_fns, transforms,
-            jacobian_convention, return_latent_state_est, progress_every,
-            verbose,
+            pf, state, m, keep_from, prior_fns, transforms,
+            jacobian_convention, return_latent_state_est, chunk_size,
+            verbose, done=steps_done, samples=prior, latents=prior_latent,
+            accepted=accepted0, on_chunk=on_chunk,
         )
+    if keep_from != burn_in:
+        post = post[:, burn_in:]
+        if state_chains is not None:
+            state_chains = state_chains[:, burn_in:]
     accept_rates = accept_total / max(m - 1, 1)
 
     # ---------------- post-processing ----------------
@@ -690,7 +806,9 @@ def pmmh(
         acceptance_rate=accept_rates,
         target_n=target_n,
         seed=seed_out,
-        timings={"tuning": timer.timings["tuning"], "compile": compile_s,
+        timings={**({"tuning": timer.timings["tuning"]}
+                    if resume_state is None else {}),
+                 "compile": compile_s,
                  "sampling": timer.timings["sampling"]},
     )
 

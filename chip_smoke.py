@@ -110,7 +110,25 @@ Phases:
     ``build_sweep_pf_impl`` at phase 21's setting, only
     ``bssm_sweep_generated`` launched, beside phase 21's engine figure;
     (e) every op the tracer maps (``sweep_codegen.op_zoo``) through its
-    generated kernel against PyTorch's CUDA ops, bit for bit.
+    generated kernel against PyTorch's CUDA ops, bit for bit;
+23. Metropolis resampling, which bypasses K3: (a)
+    ``metropolis_resample_indices`` at 4096 x 128, 256 steps, counts
+    50..128, bitwise with the CPU on 512 seeded chains; ms a call and
+    device ops a call (``device_ops``); (b) the engine's LGSS BPF with
+    ``resample_fn="metropolis"`` at 4096 x 128, T = 20, SISR, no K3
+    launch, its mean within max(5 SE, 0.3) of the stratified engine's;
+    (c) ``pmmh(resample_fn="metropolis")`` on the SIR engine with phase
+    11's control, m = 24: the pilot launches K3, phase 2 (counted through
+    a ``pf_impl`` around the default filter) K4 and no K3; samples/s,
+    device ops of one MH step beside the stratified step's;
+24. checkpoint/resume through ``pmmh()`` at 4096 chains on the SIR sweep
+    path (m = 64, a snapshot every 16 steps) and the engine (m = 16, every
+    4): uninterrupted, chunked, and m / 2 then resumed, equal bit for bit;
+    the snapshot's step and samples, no temporary file left, no tuning
+    and only the MH steps' launches in the resumed run; seconds and bytes
+    per snapshot write;
+25. the host resampler, built with this machine's ``g++``, against the
+    NumPy definition of the three schemes on 4096 rows of 128 weights.
 
 Each kernel's bound is the larger of the bytes it must move over the
 card's memory rate and its lane instructions over the card's rate for
@@ -170,6 +188,17 @@ PMMH_M, PMMH_BURN_IN = 512, 128
 # m = 512 the engine's RMPF alone took 116 s of the script's 214 s (H100,
 # 700 W). The width stays.
 FILTER_PMMH_M, FILTER_PMMH_BURN_IN = 128, 32
+# Phase 23: chains whose Metropolis indices the CPU recomputes, and the
+# Metropolis pmmh()'s steps: m = 32 took 44 s of phases 23-25's 100 s
+# (a Metropolis engine step is ~1.4 s; H100, 700 W), so m is cut to 24.
+METROPOLIS_CHECK_ROWS = 512
+METROPOLIS_PMMH_M, METROPOLIS_PMMH_BURN_IN = 24, 8
+# Phase 24: (path, m, burn_in, checkpoint_every, pilot settings or None
+# for phase 11's) of each checkpoint/resume run. Three engine pilots at
+# phase 11's settings took ~18 s; the engine's pilot is halved.
+CHECKPOINT_RUNS = (("sweep", 64, 16, 16, None),
+                   ("engine", 16, 4, 4, dict(pilot_m=100, pilot_burn_in=25,
+                                             pilot_reps=10)))
 # Observation gaps of the gapped sweep: 10 observations over 14 days.
 GAPS = (1, 2, 1, 1, 3, 1, 1, 2, 1, 1)
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bandwidth, and
@@ -1475,6 +1504,301 @@ def phase_generated(dev, control, engine_sv):
         engine_tuning_s=engine_sv.timings["tuning"])
     return rows["generated_bpf"], counts
 
+def device_ops(fn):
+    """``(result, count)``: ``fn()`` and the number of operators it
+    dispatched on CUDA tensors, views excluded (each one is a kernel
+    launch or a copy the host issues)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and any(
+                    isinstance(t, torch.Tensor) and t.is_cuda
+                    for t in tree_leaves((args, kwargs, out))):
+                Count.n += 1
+            return out
+
+    with Count():
+        result = fn()
+    return result, Count.n
+
+
+def phase_metropolis_indices(dev):
+    """Phase 23 (a): ``metropolis_resample_indices`` at 4096 x 128, the
+    default 256 steps, ``num_alive`` spread over 50..128, against the same
+    function on the CPU for a seeded sample of chains, bit for bit."""
+    from bayesssm_tpu_torch.ops.resampling import metropolis_resample_indices
+
+    rng = np.random.default_rng(23)
+    alive = rng.integers(50, PARTICLES + 1, size=CHAINS).astype(np.float32)
+    w = rng.gamma(0.5, size=(CHAINS, PARTICLES)).astype(np.float32)
+    w[np.arange(PARTICLES)[None, :] >= alive[:, None]] = 0.0
+    w /= w.sum(axis=1, keepdims=True)
+    words = words_for(CHAINS, 23, dev)
+    w_d = torch.as_tensor(w, device=dev)
+    a_d = torch.as_tensor(alive, device=dev)
+    idx, ops = device_ops(
+        lambda: metropolis_resample_indices(words, w_d, num_alive=a_d))
+    rows = np.sort(rng.choice(CHAINS, size=METROPOLIS_CHECK_ROWS,
+                              replace=False))
+    sel = torch.as_tensor(rows)
+    want = metropolis_resample_indices(
+        words.cpu()[sel], torch.as_tensor(w[rows]),
+        num_alive=torch.as_tensor(alive[rows]))
+    got = idx.cpu()[sel]
+    mismatched = int((got != want).any(dim=1).sum())
+    inside = bool((idx < a_d[:, None].long()).all())
+    ms = cuda_ms(lambda: metropolis_resample_indices(words, w_d,
+                                                     num_alive=a_d), 3)
+    say("metropolis_indices", chains=CHAINS, lanes=PARTICLES, steps=256,
+        checked_chains=len(rows), mismatched_chains=mismatched,
+        ms_per_call=ms, device_ops_per_call=ops, indices_alive=inside)
+    if mismatched or not inside:
+        raise AssertionError("Metropolis indices on the card differ from "
+                             "the CPU's, or select a masked lane")
+
+
+def phase_metropolis_engine_lgss(dev):
+    """Phase 23 (b): the engine's LGSS BPF at 4096 x 128, SISR, with
+    Metropolis resampling (no K3) against the stratified engine (K3 every
+    day) at the same shape."""
+    from bayesssm_tpu_torch.filters import bootstrap_filter
+    from bayesssm_tpu_torch.models.lgss import lgss_model, simulate_lgss
+    from bayesssm_tpu_torch.ops import _build
+
+    a, sx, sy, t = 0.9, 0.6, 0.4, 20
+    _, y = simulate_lgss(11, t_val=t, a=a, sigma_x=sx, sigma_y=sy)
+    (init_fn, trans_fn, ll_fn), _, _ = lgss_model()
+    stats = {}
+    for method in ("stratified", "metropolis"):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bootstrap_filter(
+            words_for(CHAINS, 24, dev), y, PARTICLES, init_fn, trans_fn,
+            ll_fn, theta=dict(a=a, sigma_x=sx, sigma_y=sy),
+            resample_algorithm="SISR", resample_fn=method,
+            return_particles=False)
+        lls = res.loglike.double().cpu().numpy()
+        seconds = time.perf_counter() - t0
+        k3 = _build.launches["bssm_fused_resample"]
+        stats[method] = (lls.mean(), lls.std() / np.sqrt(CHAINS))
+        say("metropolis_engine_lgss", method=method, chains=CHAINS,
+            lanes=PARTICLES, days=t, mean=lls.mean(), se=stats[method][1],
+            seconds=seconds, k3_launches=k3,
+            finite=bool(np.isfinite(lls).all()))
+        if not np.isfinite(lls).all() or k3 != (
+                t if method == "stratified" else 0):
+            raise AssertionError(f"the {method} LGSS engine: loglike not "
+                                 f"finite, or K3 launched {k3} times")
+    diff = stats["metropolis"][0] - stats["stratified"][0]
+    se = math.hypot(stats["metropolis"][1], stats["stratified"][1])
+    say("metropolis_engine_lgss", diff=diff, se=se,
+        limit=max(5 * se, 0.3))
+    if abs(diff) >= max(5 * se, 0.3):
+        raise AssertionError("the Metropolis engine's mean loglike is off "
+                             "the stratified engine's")
+
+
+def phase_metropolis_pmmh(dev, control, engine_out):
+    """Phase 23 (c): ``pmmh()`` with ``resample_fn="metropolis"`` on the
+    SIR engine path: the pilot keeps stratified resampling and K3, phase 2
+    runs K4 and Metropolis and no K3. The phase-2 filter is counted by a
+    ``pf_impl`` around the default one. Returns the run's launch
+    counts."""
+    from bayesssm_tpu_torch.models.sir import simulate_sir, sir_model
+    from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.pmmh.driver import sample_chains
+    from bayesssm_tpu_torch.pmmh.tuning import _make_pf_loglike
+
+    phase2 = {name: 0 for name in _build.launches}
+    filters = []
+
+    def counting_factory(*args, **kw):
+        pf = _make_pf_loglike(*args, **kw)
+        if args[7] != "metropolis":
+            return pf
+
+        def counted(*a):
+            before = dict(_build.launches)
+            out = pf(*a)
+            for name, v in _build.launches.items():
+                phase2[name] += v - before[name]
+            return out
+
+        filters.append(pf)
+        return counted
+
+    _, y = simulate_sir(seed=1405)
+    fns, log_priors, transform = sir_model(500, 70,
+                                           transition="gillespie_pallas")
+    counts, out = run_pmmh(
+        "engine-metropolis", y, fns, log_priors, {"lam": 0.5, "gamma": 0.2},
+        transform, control, METROPOLIS_PMMH_M, METROPOLIS_PMMH_BURN_IN,
+        f"pilot_m 2000->200 and pilot_reps 100->20 (bench.py's); m "
+        f"{PMMH_M}->{METROPOLIS_PMMH_M}, burn_in {PMMH_BURN_IN}->"
+        f"{METROPOLIS_PMMH_BURN_IN}",
+        pf_impl=counting_factory, resample_fn="metropolis")
+    expect_launches("pmmh metropolis (all)", counts,
+                    ["bssm_fused_resample", "bssm_gillespie"],
+                    ["bssm_sweep_sir"])
+    expect_launches("pmmh metropolis (phase 2)", phase2, ["bssm_gillespie"],
+                    "others")
+    # Device ops of one MH step of phase 2, and of phase 11's engine step.
+    state, prior_fns, transforms = sir_sampler(dev)
+    steps = {}
+    for what, pf in (("metropolis", filters[0]), ("stratified", engine_pf(
+            dev))):
+        warm = sample_chains(pf, state, 2, 1, prior_fns, transforms)
+        _, steps[what] = device_ops(lambda: sample_chains(
+            pf, warm.state, 2, 1, prior_fns, transforms))
+    t = out.timings
+    rate = CHAINS * (METROPOLIS_PMMH_M - 1) / t["sampling"]
+    engine_rate = CHAINS * (PMMH_M - 1) / engine_out.timings["sampling"]
+    say("metropolis_pmmh", tuning_s=t["tuning"], samples_per_s=rate,
+        acceptance=float(out.acceptance_rate.mean()),
+        phase2_launches={k: v for k, v in phase2.items() if v},
+        device_ops_per_mh_step=steps["metropolis"],
+        stratified_device_ops_per_mh_step=steps["stratified"],
+        phase11_engine_samples_per_s=engine_rate)
+    return counts
+
+
+def phase_checkpoint(control):
+    """Phase 24: ``pmmh()`` checkpoint/resume at 4096 chains on the SIR
+    sweep path (K1) and on the engine (K3, K4): A uninterrupted, B with
+    ``checkpoint_every``, C to half of m with a checkpoint, then resumed
+    to m; B and C equal A bit for bit."""
+    import tempfile
+    import warnings
+
+    from bayesssm_tpu_torch import default_tune_control, pmmh
+    from bayesssm_tpu_torch.models.sir import (
+        simulate_sir,
+        sir_model,
+        sir_sweep_pf_impl,
+    )
+    from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    _, y = simulate_sir(seed=1405)
+    fns, log_priors, transform = sir_model(500, 70,
+                                           transition="gillespie_pallas")
+    all_counts = []
+    for path, m, burn_in, every, pilot in CHECKPOINT_RUNS:
+        tune = control if pilot is None else default_tune_control(**pilot)
+        # Launches of one MH step: K1 once, or K3 and K4 once a day.
+        per_step = ({"bssm_sweep_sir": 1} if path == "sweep" else
+                    {"bssm_fused_resample": len(y), "bssm_gillespie": len(y)})
+        kernels = list(per_step)
+
+        def run(m_run, **kw):
+            _build.reset_launches()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                out = pmmh("bootstrap_filter", y, m_run, *fns, log_priors,
+                           {"lam": 0.5, "gamma": 0.2}, burn_in,
+                           num_chains=CHAINS, param_transform=transform,
+                           seed=1405, tune_control=tune,
+                           pf_impl=(sir_sweep_pf_impl(500, 70)
+                                    if path == "sweep" else None),
+                           print_summary=False, **kw)
+            counts = dict(_build.launches)
+            all_counts.append(counts)
+            expect_launches(f"checkpoint {path}", counts, kernels, "others")
+            return out, counts
+
+        with tempfile.TemporaryDirectory() as tmp:
+            ck_b = pathlib.Path(tmp) / "b.npz"
+            ck_c = pathlib.Path(tmp) / "c.npz"
+            a, _ = run(m)
+            b, _ = run(m, checkpoint_every=every, checkpoint_path=ck_b)
+            run(m // 2, checkpoint_path=ck_c)
+            c, c_counts = run(m, checkpoint_path=ck_c, resume=True,
+                              checkpoint_every=every)
+            same = all(
+                np.array_equal(a.theta_chain[q], x.theta_chain[q])
+                for x in (b, c) for q in a.theta_chain)
+            snap = load_checkpoint(ck_b)
+            leftovers = sorted(p.name for p in pathlib.Path(tmp).iterdir()
+                               if ".tmp" in p.name)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                save_checkpoint(
+                    pathlib.Path(tmp) / "timed.npz", keys=snap["keys"],
+                    theta=snap["theta"], loglike=snap["loglike"],
+                    samples=snap["samples"], step=snap["step"],
+                    meta=snap["meta"])
+            write_s = (time.perf_counter() - t0) / 3
+            size = ck_b.stat().st_size
+        # The resumed run tunes nothing: its launches are those of its
+        # m - m // 2 MH steps.
+        resumed_ok = "tuning" not in c.timings and all(
+            c_counts[k] == per_step.get(k, 0) * (m - m // 2)
+            for k in c_counts)
+        say("checkpoint", path=path, chains=CHAINS, m=m, every=every,
+            pilot=pilot or "phase 11's",
+            b_and_c_equal_a=same, snapshot_step=snap["step"],
+            snapshot_samples=tuple(snap["samples"].shape),
+            tmp_files_left=leftovers, resume_ok=resumed_ok,
+            resume_launches={k: v for k, v in c_counts.items() if v},
+            write_s=write_s, file_bytes=size,
+            a_sampling_s=a.timings["sampling"],
+            b_sampling_s=b.timings["sampling"])
+        if not (same and snap["step"] == m
+                and snap["samples"].shape == (CHAINS, m, 2)
+                and not leftovers and resumed_ok):
+            raise AssertionError(f"checkpoint/resume on the {path} path")
+    return all_counts
+
+
+def phase_host_resampling():
+    """Phase 25: the port's host resampler, built with this machine's
+    ``g++``, against the NumPy definition of the three schemes at 4096
+    rows of 128 weights."""
+    from bayesssm_tpu_torch.ops import host_resampling as host
+
+    built = not host.library_path().exists()
+    t0 = time.perf_counter()
+    if not host.native_available():
+        raise AssertionError("the host resampler did not build")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(25)
+    w = rng.gamma(0.5, size=(CHAINS, PARTICLES))
+    w[rng.random(w.shape) < 0.1] = 0.0
+    n = PARTICLES
+    bad = 0
+    t0 = time.perf_counter()
+    for row, seed in enumerate(rng.integers(2**31, size=CHAINS)):
+        cdf = np.cumsum(w[row])
+        cdf = cdf / cdf[-1]
+        cdf[-1] = 1.0
+        for method in ("multinomial", "stratified", "systematic"):
+            fn = getattr(host, f"host_resample_{method}")
+            got = fn(w[row], np.random.default_rng(seed))
+            draw = np.random.default_rng(seed)
+            pos = {"multinomial": lambda: draw.uniform(size=n),
+                   "stratified": lambda: (np.arange(n) + draw.uniform(
+                       size=n)) / n,
+                   "systematic": lambda: (np.arange(n) + draw.uniform())
+                   / n}[method]()
+            want = np.minimum(np.searchsorted(cdf, pos, side="left"), n - 1)
+            bad += int(not np.array_equal(got, want))
+    say("host_resampling", built=built, build_s=build_s, rows=CHAINS,
+        lanes=n, mismatched_rows=bad,
+        seconds_for_3_schemes=time.perf_counter() - t0)
+    if bad:
+        raise AssertionError("the host resampler differs from its NumPy "
+                             "definition")
+
+
 def pmmh_phase2(dev, path, out):
     """The filter and a sampler state as ``pmmh()``'s phase 2 holds them
     after ``out``: the same lane bound and per-chain counts, the chains'
@@ -1591,11 +1915,13 @@ def main() -> int:
 
     control = default_tune_control(pilot_m=200, pilot_burn_in=50,
                                    pilot_reps=20)
+    pmmh_outs = {}
     for path in ("sweep", "engine"):
-        run_counts, out = phase_pmmh(path, control)
+        run_counts, pmmh_outs[path] = phase_pmmh(path, control)
         main_counts.append(run_counts)
         if "--profile" in sys.argv[1:]:
-            profile_steps(f"pmmh-{path}", *pmmh_phase2(dev, path, out))
+            profile_steps(f"pmmh-{path}",
+                          *pmmh_phase2(dev, path, pmmh_outs[path]))
 
     phase_sweep_branches(dev)
     phase_fused_resample_aux(dev)
@@ -1615,6 +1941,14 @@ def main() -> int:
     main_counts += run_counts
     gen_row, run_counts = phase_generated(dev, control, sv_out)
     main_counts.append(run_counts)
+    t_new = time.perf_counter()
+    phase_metropolis_indices(dev)
+    phase_metropolis_engine_lgss(dev)
+    main_counts.append(
+        phase_metropolis_pmmh(dev, control, pmmh_outs["engine"]))
+    main_counts += phase_checkpoint(control)
+    phase_host_resampling()
+    say("phases_23_25", seconds=time.perf_counter() - t_new)
     total = {name: sum(c[name] for c in main_counts)
              for name in _build.launches}
 

@@ -314,7 +314,9 @@ def _run(y=np.zeros(5), n=10, init=_ok_init, trans=_ok_trans, lik=_ok_lik,
     (dict(resample_fn="bogus"), ValueError, "resample_fn must be one of"),
     (dict(n=torch.tensor([10.0])), ValueError,
      "max_particles is required"),
-    (dict(resample_fn="metropolis"), NotImplementedError, "ROADMAP"),
+    # Metropolis runs on the portable path only (the JAX engine's gate).
+    (dict(resample_fn="metropolis", use_fused=True), ValueError,
+     "inverse-CDF selection only"),
 ])
 def test_validation_messages(kw, err, match):
     with pytest.raises(err, match=match):

@@ -104,11 +104,9 @@ def test_validation_messages_match_jax(case):
     assert str(got.value) == str(want.value)
 
 
+# Checkpointing (item 5) runs since it was ported: tests/test_torch_checkpoint.py.
 NOT_PORTED = {
     "mesh": (dict(mesh=object()), "item 6"),
-    "checkpoint_every": (dict(checkpoint_every=5), "item 5"),
-    "checkpoint_path": (dict(checkpoint_path="snapshot.npz"), "item 5"),
-    "resume": (dict(resume=True), "item 5"),
 }
 
 

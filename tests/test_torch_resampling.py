@@ -23,6 +23,7 @@ from bayesssm_tpu.ops.resampling import (
 from bayesssm_tpu_torch.ops.resampling import (
     _positions,
     gather_particles,
+    metropolis_resample_indices,
     resample_indices,
 )
 
@@ -118,5 +119,10 @@ def test_unknown_and_unported_methods():
     w = torch.full((1, 8), 0.125)
     with pytest.raises(ValueError, match="unknown resampling method"):
         resample_indices(words, w, "bogus")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resample_indices(words, w, "metropolis")
+    # "metropolis" dispatches to the Metropolis resampler, as in JAX
+    # (``resample_indices`` :221-222).
+    got = resample_indices(words, w, "metropolis")
+    want = metropolis_resample_indices(words, w, num_alive=torch.full(
+        (1,), 8.0))
+    assert got.shape == (1, 8)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
