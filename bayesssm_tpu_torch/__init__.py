@@ -14,7 +14,9 @@ particle-filter engine
 fused weight step (``csrc/resample.cu``) and the Gillespie day-step
 (``csrc/gillespie.cu``); either one serves ``pmmh()``, the two-phase PMMH
 driver with pilot tuning, ESS/R-hat diagnostics and ``PMMHOutput``
-(``pmmh/driver.py``). The kernels are built by ``nvcc`` at first use, and
+(``pmmh/driver.py``), on one device or on every rank of a
+``torch.distributed`` mesh, chains and particles sharded over the ranks
+(``parallel/``). The kernels are built by ``nvcc`` at first use, and
 every kernel has a plain PyTorch version beside it, which CPU tensors
 take. The JAX package ``bayesssm_tpu`` stays the reference; this package
 never imports JAX.
@@ -66,6 +68,9 @@ _EXPORTS = {
     "init_chain_state": "bayesssm_tpu_torch.pmmh.driver",
     "mh_step": "bayesssm_tpu_torch.pmmh.driver",
     "sample_chains": "bayesssm_tpu_torch.pmmh.driver",
+    "MeshConfig": "bayesssm_tpu_torch.parallel.mesh",
+    "make_chain_mesh": "bayesssm_tpu_torch.parallel.mesh",
+    "shard_chain_tree": "bayesssm_tpu_torch.parallel.mesh",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -68,8 +68,21 @@ after a resample use the uniform weights), fresh weights each day unless
 ``carry_weights``, and degenerate weights (every log-weight below -1e8)
 giving ``-inf`` with zeroed weights and ESS from that day on.
 
-Not ported yet: ``particle_axis`` sharding, which raises
-``NotImplementedError`` naming its ROADMAP item.
+**Particle sharding.** ``particle_axis`` names a mesh axis of
+``particle_axis_size`` ranks over which each chain's particles are
+sharded; the call runs on every rank of that axis inside
+``parallel.mesh.use_mesh(mesh)`` (``parallel/collectives.py``), as the
+JAX engine runs inside ``shard_map``. Each rank holds ``n_loc = N /
+particle_axis_size`` lanes (global lanes ``shard * n_loc + j``), and the
+model functions see ``num_particles = n_loc``. The model streams (the
+initial draw, the gap loop, the APF's second transition, the move) fold
+in the shard index; the resampling keys stay the same on every shard. The
+weight step's maximum, sums and ESS are completed over the axis, the
+resampling is ``sharded_resample_indices`` with ``sharded_gather``, and
+the state estimate is summed over the shards, so every shard returns the
+global log-likelihood, ESS and state estimate. The fused weight step is
+single-shard, so it is off under sharding (as in JAX): ``"auto"`` takes
+the collective portable path there.
 """
 
 from __future__ import annotations
@@ -87,6 +100,8 @@ from bayesssm_tpu_torch.ops.resampling import (
     _positions,
     gather_particles,
     resample_indices,
+    sharded_gather,
+    sharded_resample_indices,
 )
 from bayesssm_tpu_torch.ops.resampling_fused import (
     MAX_FUSED_LANES,
@@ -277,10 +292,6 @@ def particle_filter_core(
         raise ValueError("APF requires aux_weight_fn")
     if algorithm == "RMPF" and move_fn is None:
         raise ValueError("RMPF requires a move_fn")
-    if particle_axis is not None:
-        raise NotImplementedError(
-            "particle_axis sharding is not ported yet (ROADMAP Queue 1, "
-            "multi-GPU)")
 
     theta = dict(theta or {})
     if max_particles is None:
@@ -291,7 +302,24 @@ def particle_filter_core(
         if num_particles < 1:
             raise ValueError("num_particles must be a positive integer")
         max_particles = int(num_particles)
-    n = int(max_particles)
+    n_static = int(max_particles)
+
+    sharded = particle_axis is not None
+    if sharded:
+        if particle_axis_size < 1 or n_static % particle_axis_size:
+            raise ValueError(
+                "num_particles/max_particles must be divisible by "
+                "particle_axis_size"
+            )
+        from bayesssm_tpu_torch.parallel.collectives import (
+            axis_index,
+            pmax,
+            psum,
+        )
+
+        n = n_static // particle_axis_size
+    else:
+        n = n_static
 
     init = adapt_fn(init_fn, "init_fn", required=("num_particles",))
     trans = adapt_fn(transition_fn, "transition_fn", required=("particles",))
@@ -333,11 +361,17 @@ def particle_filter_core(
         return p
 
     key_run, k_init = threefry.split(words).unbind(1)
+    p_idx = axis_index(particle_axis) if sharded else None
+    if sharded:
+        # Per-shard model streams; the resampling keys stay shard-identical.
+        k_init = threefry.fold_in(k_init, p_idx)
     particles0 = canon(init(key=k_init, num_particles=n, **theta), "init_fn")
     dtype = particles0.dtype
 
     n_f = _per_chain(num_particles, c, dtype, dev)
     lane = torch.arange(n, dtype=dtype, device=dev)
+    if sharded:
+        lane = lane + float(p_idx * n)      # global lane ids
     alive = lane < n_f[:, None]
     log_n = torch.log(n_f)
     if threshold is None:
@@ -348,13 +382,14 @@ def particle_filter_core(
     log_uniform_w = torch.where(alive, -log_n[:, None], -math.inf)
 
     # The weight-step gate of the JAX engine (:390-409), with "the Pallas
-    # kernel can compile" read as "the tensors are on a CUDA device".
+    # kernel can compile" read as "the tensors are on a CUDA device"; the
+    # static lane count is the global one.
     inkernel_rng = use_fused in ("auto", "interpret-inkernel")
     if use_fused == "auto":
         fused_enabled = (
             dev.type == "cuda"
-            and n % 128 == 0
-            and n <= MAX_FUSED_LANES
+            and n_static % 128 == 0
+            and n_static <= MAX_FUSED_LANES
             and resample_algorithm != "SIS"
             and resample_fn != "metropolis"
             and dtype == torch.float32
@@ -368,6 +403,10 @@ def particle_filter_core(
             "the fused Pallas path implements inverse-CDF selection only; "
             "use_fused must be False/'auto' with resample_fn='metropolis'"
         )
+    if sharded:
+        # K3's CDF and selection are single-shard: the sharded weight step
+        # runs the collective portable path (JAX core.py:423-429).
+        fused_enabled = False
     always_resample = algorithm == "RMPF" or resample_algorithm == "SISR"
     zero_thr = torch.zeros_like(n_f)
 
@@ -397,6 +436,10 @@ def particle_filter_core(
         y_i = ys[t, 0] if d_y == 1 else ys[t]
         t_i = int(ot[t])
         k_gap, k_aux, k_trans2, k_res, k_move = step_keys[:, t].unbind(1)
+        if sharded:
+            k_gap = threefry.fold_in(k_gap, p_idx)
+            k_trans2 = threefry.fold_in(k_trans2, p_idx)
+            k_move = threefry.fold_in(k_move, p_idx)
 
         # --- propagate through observation-time gaps ---
         if plain_gaps:
@@ -420,7 +463,10 @@ def particle_filter_core(
             # Degenerate aux weights kill the chain: without this the
             # fused path's -1e30 clamp cancels in lw - aux_anc and a dead
             # proposal would give a huge spurious log-likelihood.
-            dead = dead | (torch.amax(aux_lw, dim=1) < DEGENERATE_LOG_WEIGHT)
+            aux_max = torch.amax(aux_lw, dim=1)
+            if sharded:
+                aux_max = pmax(aux_max, particle_axis)
+            dead = dead | (aux_max < DEGENERATE_LOG_WEIGHT)
             aux_base = aux_lw + lnw_prev if carry_weights else aux_lw
             if fused_enabled:
                 p3 = particles if particles.ndim == 3 else particles[..., None]
@@ -431,6 +477,13 @@ def particle_filter_core(
                 aux_anc = p_ext[..., -1]
                 particles = (p_ext[..., :-1] if particles.ndim == 3
                              else p_ext[..., 0])
+            elif sharded:
+                aux_w, _, _ = normalize_log_weights(
+                    aux_base, axis_name=particle_axis)
+                anc = sharded_resample_indices(k_aux, aux_w, resample_fn,
+                                               particle_axis, n_f)
+                particles = sharded_gather(particles, anc, particle_axis)
+                aux_anc = sharded_gather(aux_lw, anc, particle_axis)
             else:
                 aux_w, _, _ = normalize_log_weights(aux_base)
                 anc = resample_indices(k_aux, aux_w, method=resample_fn,
@@ -448,7 +501,10 @@ def particle_filter_core(
         lw = torch.where(alive, lw.to(dtype), -math.inf)
 
         # --- degenerate-weight detection ---
-        dead = dead | (torch.amax(lw, dim=1) < DEGENERATE_LOG_WEIGHT)
+        lw_max = torch.amax(lw, dim=1)
+        if sharded:
+            lw_max = pmax(lw_max, particle_axis)
+        dead = dead | (lw_max < DEGENERATE_LOG_WEIGHT)
         if carry_weights:
             # After an APF step the aux resample consumed the carried
             # weights.
@@ -471,16 +527,23 @@ def particle_filter_core(
             else:
                 ess_rec = torch.where(ess < thr_arg, n_f, ess)
         else:
-            weights, lse, mx = normalize_log_weights(combined)
+            weights, lse, mx = normalize_log_weights(
+                combined, axis_name=particle_axis)
             incr = (mx + lse) if carry_weights else (mx + lse - log_n)
             loglike = torch.where(dead, -math.inf, loglike + incr)
-            ess = effective_sample_size(weights)
+            ess = effective_sample_size(weights, axis_name=particle_axis)
             if resample_algorithm == "SIS" and not always_resample:
                 ess_rec = ess
             else:
-                idx = resample_indices(k_res, weights, method=resample_fn,
-                                       num_alive=n_f, validate=False)
-                resampled = gather_particles(particles, idx)
+                if sharded:
+                    idx = sharded_resample_indices(
+                        k_res, weights, resample_fn, particle_axis, n_f)
+                    resampled = sharded_gather(particles, idx, particle_axis)
+                else:
+                    idx = resample_indices(k_res, weights,
+                                           method=resample_fn,
+                                           num_alive=n_f, validate=False)
+                    resampled = gather_particles(particles, idx)
                 if always_resample:
                     particles, weights, ess_rec = resampled, uniform_w, n_f
                 else:
@@ -504,7 +567,8 @@ def particle_filter_core(
                 pos_w, torch.log(torch.where(pos_w, weights, 1.0)),
                 -math.inf)
 
-        states.append(_weighted_sum(weights, particles))
+        state = _weighted_sum(weights, particles)
+        states.append(psum(state, particle_axis) if sharded else state)
         esses.append(ess_rec)
         lls.append(loglike)
         if return_particles:
@@ -512,6 +576,8 @@ def particle_filter_core(
             w_hist.append(weights)
 
     state0 = _weighted_sum(uniform_w, particles0)
+    if sharded:
+        state0 = psum(state0, particle_axis)
     return FilterResult(
         state_est=torch.stack([state0, *states], dim=1),
         ess=torch.stack([n_f, *esses], dim=1),

@@ -22,8 +22,11 @@ Masked lanes: ``num_alive`` (``[C]``) restricts resampling to the first
 are clipped onto the last alive ancestor.
 
 ``"metropolis"`` is Murray's sort-free resampler
-(:func:`metropolis_resample_indices`). The particle-sharded pair waits for
-its ROADMAP item.
+(:func:`metropolis_resample_indices`).
+
+Particle-sharded resampling (:func:`sharded_resample_indices`,
+:func:`sharded_gather`) runs on each shard's ``[C, N / ps]`` block of a
+particle axis sharded over a mesh axis (``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ import torch
 from bayesssm_tpu_torch.ops import threefry
 
 __all__ = ["RESAMPLE_METHODS", "resample_indices",
-           "metropolis_resample_indices", "gather_particles"]
+           "metropolis_resample_indices", "gather_particles",
+           "sharded_resample_indices", "sharded_gather"]
 
 RESAMPLE_METHODS = ("stratified", "systematic", "multinomial", "metropolis")
 
@@ -191,3 +195,55 @@ def gather_particles(particles: torch.Tensor, idx: torch.Tensor):
     return torch.gather(
         particles, -2,
         idx[..., None].expand(*idx.shape, particles.shape[-1]))
+
+
+def sharded_resample_indices(keys, weights_local: torch.Tensor, method: str,
+                             axis_name: str, num_alive) -> torch.Tensor:
+    """Inverse-CDF resampling over a particle axis sharded on
+    ``axis_name``: this shard's ``[C, n_local]`` GLOBAL ancestor indices.
+
+    ``weights_local [C, n_local]`` is this shard's slice of globally
+    normalised weights (``normalize_log_weights(axis_name=...)``) and
+    ``keys [C, 2]`` must be the same on every shard. Every shard draws the
+    positions of ALL global slots from ``keys``, keeps its own slots,
+    searches them in the gathered global CDF (one ``all_gather``) and
+    clips onto the last alive lane, so the ancestors are those of the
+    unsharded ``resample_indices``. ``"metropolis"`` runs the chains of
+    this shard's own output slots over the gathered weights, from
+    ``fold_in(keys, shard)``.
+    """
+    from bayesssm_tpu_torch.parallel.collectives import (
+        all_gather,
+        axis_index,
+    )
+
+    c, n_local = weights_local.shape
+    dev = weights_local.device
+    keys = threefry.as_key_words(keys, dev)
+    w_all = all_gather(weights_local, axis_name, dim=1)
+    n_global = w_all.shape[1]
+    alive = torch.as_tensor(num_alive, dtype=w_all.dtype,
+                            device=dev).expand(c).contiguous()
+    shard = axis_index(axis_name)
+    if method == "metropolis":
+        return metropolis_resample_indices(
+            threefry.fold_in(keys, shard), w_all, num_alive=alive,
+            num_out=n_local)
+    lo = shard * n_local
+    pos = _positions(keys, method, n_global, alive)[:, lo:lo + n_local]
+    cdf = torch.cumsum(w_all, dim=-1)
+    idx = torch.searchsorted(cdf.contiguous(), pos.contiguous(), right=False)
+    last_alive = (alive - 1.0).to(torch.int64)[:, None]
+    return torch.minimum(idx.clamp_(min=0), last_alive)
+
+
+def sharded_gather(x_local: torch.Tensor, idx_global: torch.Tensor,
+                   axis_name: str) -> torch.Tensor:
+    """Rows of a particle-sharded ``x_local [C, n_local(, d)]`` by GLOBAL
+    ancestor index ``idx_global [C, n_local]`` (from
+    ``sharded_resample_indices``): one ``all_gather`` of the global array,
+    then a gather."""
+    from bayesssm_tpu_torch.parallel.collectives import all_gather
+
+    return gather_particles(all_gather(x_local, axis_name, dim=1),
+                            idx_global)

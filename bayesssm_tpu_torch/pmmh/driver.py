@@ -49,6 +49,21 @@ samplers agree in distribution; the tests hand both the same normals,
 uniforms and filter words. A step's words depend only on the chain words
 and the step's index, so how the steps are cut into chunks changes no
 sample.
+
+**Meshes.** ``pmmh(mesh=...)`` runs on every rank of a ``(chains,
+particles)`` mesh (``parallel/mesh.py``), each rank on its own block of
+chains, as the JAX driver runs its phases inside ``shard_map``: rank
+``c`` of the chains axis takes chains ``c * C / cs .. (c + 1) * C / cs -
+1``. Chain keys are ``fold_in(root, chain id)`` and the MH stream words
+follow the chain keys, so a chain's draws do not depend on the rank that
+runs it, and a chains-only mesh gives the no-mesh run's samples bit for
+bit. The ranks of one particle group run the same chains with the
+particle-sharded engine (``particle_axis``): their log-likelihoods, and
+so every decision and trip count of the sampler, are equal. Collectives
+over the chains axis run only where the outputs come together: the
+pilot's results before phase 2 (the lane bound is the global one), the
+samples at the end, every checkpoint snapshot and the timings. Every
+rank returns the same full ``PMMHOutput``.
 """
 
 from __future__ import annotations
@@ -423,7 +438,8 @@ def _root_key(seed):
 def _sample_in_chunks(pf, state, m, keep_from, prior_fns, transforms,
                       jacobian_convention, return_latent_state_est,
                       chunk_size, verbose, done=1, samples=None,
-                      latents=None, accepted=None, on_chunk=None):
+                      latents=None, accepted=None, on_chunk=None,
+                      gather=None):
     """Samples ``keep_from .. m - 1`` ``[C, m - keep_from, P]`` (and latent
     states) of ``m`` samples per chain, of which ``done`` exist: ``state``
     (its log-likelihood set) is sample ``done - 1``, and samples ``done ..
@@ -437,8 +453,10 @@ def _sample_in_chunks(pf, state, m, keep_from, prior_fns, transforms,
     ``chunk_size`` ``None`` runs the samples before ``keep_from`` in one
     chunk and the rest in chunks of at most ``SAMPLE_CHUNK`` steps;
     otherwise every chunk is ``chunk_size`` steps, and ``verbose`` prints
-    the JAX driver's progress line after each. ``on_chunk(state, done,
-    samples, latents, accepted)`` is called after each chunk.
+    the JAX driver's progress line after each, over the chains that
+    ``gather`` (by default the identity) collects from every rank.
+    ``on_chunk(state, done, samples, latents, accepted)`` is called after
+    each chunk.
     """
     samples = list(samples or [])
     latents = list(latents or [])
@@ -470,8 +488,9 @@ def _sample_in_chunks(pf, state, m, keep_from, prior_fns, transforms,
         accepted += res.accepted
         done += length
         if verbose:
-            chunk_acc = float(res.accepted.mean()) / length
-            cum_acc = float(accepted.mean()) / max(done - 1, 1)
+            every = gather or (lambda x: x)
+            chunk_acc = float(every(res.accepted).mean()) / length
+            cum_acc = float(every(accepted).mean()) / max(done - 1, 1)
             print(
                 f"Sampling: {done}/{m} steps — acceptance "
                 f"chunk {chunk_acc:.3f}, cumulative {cum_acc:.3f}"
@@ -484,6 +503,38 @@ def _sample_in_chunks(pf, state, m, keep_from, prior_fns, transforms,
     latent = (np.concatenate(latents, axis=1)
               if return_latent_state_est and latents else None)
     return post, latent, accepted
+
+
+def _sharded_pf_factory(mesh, particle_axis: str, ps: int):
+    """``_make_pf_loglike`` with the particle axis sharded over ``ps``
+    ranks; each filter call runs inside ``use_mesh(mesh)``."""
+    from bayesssm_tpu_torch.parallel.mesh import use_mesh
+
+    def factory(*args, **kwargs):
+        pf = _make_pf_loglike(*args, particle_axis=particle_axis,
+                              particle_axis_size=ps, **kwargs)
+
+        def pf_on_mesh(*call_args, **call_kwargs):
+            with use_mesh(mesh):
+                return pf(*call_args, **call_kwargs)
+
+        return pf_on_mesh
+
+    return factory
+
+
+def _slowest_rank(timings: dict, mesh, dev) -> dict:
+    """Each phase's seconds on the slowest rank of the mesh, so that every
+    rank reports the same timings."""
+    from bayesssm_tpu_torch.parallel.collectives import pmax
+    from bayesssm_tpu_torch.parallel.mesh import use_mesh
+
+    secs = torch.tensor(list(timings.values()), dtype=torch.float64,
+                        device=dev)
+    with use_mesh(mesh):
+        for axis in mesh.mesh_dim_names:
+            secs = pmax(secs, axis)
+    return dict(zip(timings, secs.cpu().tolist()))
 
 
 def _resolve_device(device) -> torch.device:
@@ -563,9 +614,14 @@ def pmmh(
     docstring), so a resumed run equals the uninterrupted one bit for bit,
     whatever the chunks of either.
 
-    Not ported yet: ``mesh`` (ROADMAP Queue 1 item 6, multi-GPU), which
-    raises ``NotImplementedError``. ``chain_axis`` and ``particle_axis``
-    name mesh axes and are read only with a mesh.
+    ``mesh`` (a ``DeviceMesh`` from ``make_chain_mesh``,
+    ``MeshConfig.build`` or ``global_chain_mesh``) runs the call on every
+    rank of the mesh, each on its block of chains (module docstring);
+    ``chain_axis`` and ``particle_axis`` name its axes. ``num_chains``
+    must be divisible by the chains axis, and a particle axis larger than
+    1 shards every filter's particles and refuses a ``pf_impl``, whose
+    kernels are single-shard. A snapshot holds every chain whatever the
+    mesh, and resumes on any mesh or none.
     """
     # ---------------- validation ----------------
     if not isinstance(m, (int, np.integer)) or m < 1:
@@ -612,12 +668,44 @@ def pmmh(
                 "via pilot_init_params."
             )
 
+    cs = ps = 1
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported yet (ROADMAP Queue 1 item 6, multi-GPU)")
-    del chain_axis, particle_axis
+        axes = tuple(mesh.mesh_dim_names or ())
+        if chain_axis not in axes:
+            raise ValueError(
+                f"mesh has no axis {chain_axis!r} (axes {axes})")
+        cs = mesh.size(axes.index(chain_axis))
+        if particle_axis in axes:
+            ps = mesh.size(axes.index(particle_axis))
+        if ps > 1 and pf_impl is not None:
+            raise ValueError(
+                "pf_impl evaluators are single-shard; use a mesh whose "
+                f"'{particle_axis}' axis has size 1"
+            )
+        if num_chains % cs:
+            raise ValueError(
+                "num_chains must be divisible by the mesh chains axis"
+            )
 
     dev = _resolve_device(device)
+    c_local = num_chains // cs
+    rank = mesh.get_local_rank(chain_axis) if mesh is not None else 0
+    lo = rank * c_local
+    block = slice(lo, lo + c_local)
+
+    def gather(x):
+        """This rank's ``[c_local, ...]`` host array of per-chain values as
+        the ``[num_chains, ...]`` array of every rank (through the chains
+        group whenever there is a mesh, so a one-rank mesh's gathers run on
+        its backend too)."""
+        if mesh is None:
+            return x
+        from bayesssm_tpu_torch.parallel.collectives import all_gather
+        from bayesssm_tpu_torch.parallel.mesh import use_mesh
+
+        local = torch.as_tensor(np.ascontiguousarray(x), device=dev)
+        with use_mesh(mesh):
+            return all_gather(local, chain_axis).cpu().numpy()
 
     # ---------------- resume path ----------------
     resume_state = None
@@ -641,13 +729,16 @@ def pmmh(
             )
 
     root_key, seed_out = _root_key(seed)
-    chain_keys = threefry.fold_in(root_key.to(dev),
-                                  torch.arange(num_chains, device=dev))
+    chain_keys = threefry.fold_in(
+        root_key.to(dev), torch.arange(lo, lo + c_local, device=dev))
     model_fns = (
         init_fn, transition_fn, log_likelihood_fn,
         aux_log_likelihood_fn, move_fn,
     )
-    pf_factory = pf_impl or _make_pf_loglike
+    if ps > 1:
+        pf_factory = _sharded_pf_factory(mesh, particle_axis, ps)
+    else:
+        pf_factory = pf_impl or _make_pf_loglike
     timer = PhaseTimer(verbose=verbose, device=dev)
 
     compile_s = 0.0
@@ -667,17 +758,17 @@ def pmmh(
         with timer.phase("tuning"):
             tuned = run_pilot_chain(
                 chain_keys, y_host, param_names, model_fns, prior_fns,
-                theta0, transforms, tune_control, obs_times=obs_times,
+                theta0[block], transforms, tune_control, obs_times=obs_times,
                 algorithm=algorithm,
                 jacobian_convention=jacobian_convention,
                 carry_weights=carry_weights, pf_impl=pf_factory,
             )
-        # The one host sync between the phases.
-        theta_mean = tuned["pilot_theta_mean"].cpu().numpy().astype(
+        # The one host sync between the phases, over every chain.
+        theta_mean = gather(tuned["pilot_theta_mean"].cpu().numpy()).astype(
             np.float64)
-        theta_cov = tuned["pilot_theta_cov"].cpu().numpy().astype(
+        theta_cov = gather(tuned["pilot_theta_cov"].cpu().numpy()).astype(
             np.float64)
-        target_n = tuned["target_n"].cpu().numpy().astype(np.int64)
+        target_n = gather(tuned["target_n"].cpu().numpy()).astype(np.int64)
 
         if verbose:
             for c in range(num_chains):
@@ -689,6 +780,10 @@ def pmmh(
         meta = resume_state["meta"]
         theta_mean = np.asarray(meta["theta_mean"])
         target_n = np.asarray(meta["target_n"], dtype=np.int64)
+        if target_n.shape != (num_chains,):
+            raise ValueError(
+                f"checkpoint {checkpoint_path} holds {target_n.shape[0]} "
+                f"chains, not num_chains={num_chains}")
 
     # ---------------- phase 2: the main chains ----------------
     max_particles = _particle_lane_bound(int(target_n.max()))
@@ -699,9 +794,9 @@ def pmmh(
     )
     if resume_state is None:
         mh_keys, k0 = threefry.split(chain_keys).unbind(1)
-        state = chain_state_from_pilot(theta_mean, theta_cov, target_n,
-                                       transforms, mh_keys.cpu().numpy(),
-                                       dev)
+        state = chain_state_from_pilot(theta_mean[block], theta_cov[block],
+                                       target_n[block], transforms,
+                                       mh_keys.cpu().numpy(), dev)
         ll0, se0 = pf(k0, state.theta, state.n)
         state = dataclasses.replace(
             state, ll=ll0, se=se0 if return_latent_state_est else None)
@@ -717,19 +812,20 @@ def pmmh(
                 "resume with return_latent_state_est=False or restart"
             )
         state = chain_state_from_numpy(
-            resume_state["theta"], meta["prop_factors"], target_n,
-            resume_state["keys"], dev)
+            resume_state["theta"][block], meta["prop_factors"][block],
+            target_n[block], resume_state["keys"][block], dev)
         state = dataclasses.replace(
             state,
-            ll=torch.as_tensor(resume_state["loglike"], device=dev),
-            se=(torch.as_tensor(resume_state["state_est"], device=dev)
+            ll=torch.as_tensor(resume_state["loglike"][block], device=dev),
+            se=(torch.as_tensor(resume_state["state_est"][block],
+                                device=dev)
                 if return_latent_state_est else None),
             step=int(meta["mh_step"]))
         steps_done = resume_state["step"]
-        prior = [resume_state["samples"]]
-        prior_latent = ([resume_state["state_samples"]]
+        prior = [resume_state["samples"][block]]
+        prior_latent = ([resume_state["state_samples"][block]]
                         if return_latent_state_est else [])
-        accepted0 = np.asarray(meta["accept_total"]).astype(np.int64)
+        accepted0 = np.asarray(meta["accept_total"])[block].astype(np.int64)
 
     if verbose:
         print("Running Particle MCMC chains with tuned settings...")
@@ -746,21 +842,25 @@ def pmmh(
         keep_from = 0
 
         def on_chunk(st, done, samples, latents, accepted):
+            # Every rank gathers every chain and writes the same snapshot.
+            def full(x):
+                return gather(x.cpu().numpy())
+
             save_checkpoint(
                 checkpoint_path,
-                keys=st.words,
-                theta=st.theta,
-                loglike=st.ll,
-                state_est=st.se if return_latent_state_est else None,
-                samples=np.concatenate(samples, axis=1),
-                state_samples=(np.concatenate(latents, axis=1)
+                keys=full(st.words),
+                theta=full(st.theta),
+                loglike=full(st.ll),
+                state_est=full(st.se) if return_latent_state_est else None,
+                samples=gather(np.concatenate(samples, axis=1)),
+                state_samples=(gather(np.concatenate(latents, axis=1))
                                if return_latent_state_est else None),
                 step=done,
                 meta={
                     "theta_mean": theta_mean,
                     "target_n": target_n,
-                    "prop_factors": st.factors,
-                    "accept_total": accepted.astype(np.float64),
+                    "prop_factors": full(st.factors),
+                    "accept_total": gather(accepted).astype(np.float64),
                     "mh_step": st.step,
                 },
             )
@@ -770,8 +870,12 @@ def pmmh(
             pf, state, m, keep_from, prior_fns, transforms,
             jacobian_convention, return_latent_state_est, chunk_size,
             verbose, done=steps_done, samples=prior, latents=prior_latent,
-            accepted=accepted0, on_chunk=on_chunk,
+            accepted=accepted0, on_chunk=on_chunk, gather=gather,
         )
+    post = gather(post)
+    accept_total = gather(accept_total)
+    if state_chains is not None:
+        state_chains = gather(state_chains)
     if keep_from != burn_in:
         post = post[:, burn_in:]
         if state_chains is not None:
@@ -799,6 +903,12 @@ def pmmh(
         param_rhat[p] = (float(rhat_matrix(mat)) if post.shape[1] >= 2
                          else float("nan"))
 
+    timings = {**({"tuning": timer.timings["tuning"]}
+                  if resume_state is None else {}),
+               "compile": compile_s,
+               "sampling": timer.timings["sampling"]}
+    if mesh is not None:
+        timings = _slowest_rank(timings, mesh, dev)
     result = PMMHOutput(
         theta_chain=theta_chain_dict,
         diagnostics={"ess": param_ess, "rhat": param_rhat},
@@ -806,10 +916,7 @@ def pmmh(
         acceptance_rate=accept_rates,
         target_n=target_n,
         seed=seed_out,
-        timings={**({"tuning": timer.timings["tuning"]}
-                    if resume_state is None else {}),
-                 "compile": compile_s,
-                 "sampling": timer.timings["sampling"]},
+        timings=timings,
     )
 
     if print_summary:

@@ -131,14 +131,11 @@ def _make_pf_loglike(
     aux_fn, move_fn)``; ``theta`` columns follow ``param_names``. The
     filter runs with ``use_fused="auto"``, the engine's default, as the
     JAX function's does: on CUDA tensors every SISR/SISAR day goes through
-    the fused weight-step kernel. ``particle_axis`` sharding is not ported
-    yet (ROADMAP Queue 1, multi-GPU).
+    the fused weight-step kernel. With ``particle_axis`` each call runs
+    the particle-sharded engine on this rank's ``max_particles /
+    particle_axis_size`` lanes, inside ``parallel.mesh.use_mesh`` (the
+    fused step is then off, as in JAX).
     """
-    if particle_axis is not None:
-        raise NotImplementedError(
-            "particle_axis sharding is not ported yet (ROADMAP Queue 1, "
-            "multi-GPU)")
-    del particle_axis_size
     init_fn, transition_fn, log_likelihood_fn, aux_fn, move_fn = model_fns
     names = list(param_names)
     on_device = {}
@@ -167,6 +164,8 @@ def _make_pf_loglike(
             return_particles=False,
             max_particles=max_particles,
             carry_weights=carry_weights,
+            particle_axis=particle_axis,
+            particle_axis_size=particle_axis_size,
         )
         return res.loglike, res.state_est
 

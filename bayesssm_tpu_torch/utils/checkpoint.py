@@ -15,7 +15,14 @@ version 1 in three ways:
   version 1, so neither driver resumes the other's stream;
 * ``state_est`` is stored only when latent-state collection is on, never
   as a ``[C]`` zero placeholder;
-* the temporary file (``<path>.tmp0``) is removed when the write fails.
+* the temporary file is removed when the write fails.
+
+The temporary file is ``<path>.tmp<rank>``, the rank of this process in
+its ``torch.distributed`` group (0 without one), as the JAX package names
+it by process index: under a mesh every rank writes the same full
+snapshot (``pmmh()`` gathers the chains first), and distinct temporary
+files keep concurrent writers on a shared file system off each other's
+partial files; the renames are atomic and write identical content.
 
 :func:`load_checkpoint` reads both versions.
 """
@@ -33,6 +40,14 @@ FORMAT_VERSION = 2
 _READABLE = (1, 2)
 
 
+def _process_index() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -42,7 +57,7 @@ def _host(x) -> np.ndarray:
 def save_checkpoint(path, *, keys, theta, loglike, samples, step: int,
                     state_est=None, state_samples=None,
                     meta: dict | None = None) -> None:
-    """Write a sampler snapshot atomically: to ``<path>.tmp0``, then
+    """Write a sampler snapshot atomically: to ``<path>.tmp<rank>``, then
     renamed over ``path``; a failed write removes the temporary file and
     re-raises.
 
@@ -53,7 +68,7 @@ def save_checkpoint(path, *, keys, theta, loglike, samples, step: int,
     """
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(path.suffix + ".tmp0")
+    tmp = path.with_suffix(path.suffix + f".tmp{_process_index()}")
     payload = {
         "format_version": np.asarray(FORMAT_VERSION),
         "key_data": _host(keys).astype(np.uint32),

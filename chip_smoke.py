@@ -128,7 +128,26 @@ Phases:
     and only the MH steps' launches in the resumed run; seconds and bytes
     per snapshot write;
 25. the host resampler, built with this machine's ``g++``, against the
-    NumPy definition of the three schemes on 4096 rows of 128 weights.
+    NumPy definition of the three schemes on 4096 rows of 128 weights;
+26. multi-rank, NCCL: a child process joins a one-rank NCCL group, builds
+    ``global_chain_mesh()`` and runs phase 15's RMPF ``pmmh(mesh=...)``
+    on both paths; samples, counts and acceptance equal phase 15's bit for
+    bit, the launches too, and the outputs' gathers run on NCCL;
+27. multi-rank, two ranks on the card over gloo (NCCL refuses two ranks
+    on one device): (a) phase 15's sweep RMPF ``pmmh()`` on a 2 x 1 chains
+    mesh, 2048 chains a rank, both ranks' full output equal to phase 15's
+    bit for bit; on a 1 x 2 particle mesh (b) the SIR RMPF
+    ``sharded_particle_filter`` on the engine at 4096 chains x 256
+    particles (128 a rank), K4 once a day on each rank and K3 never, its
+    mean within max(5 SE, 0.1) of the unsharded engine's at 256
+    particles; (c) the LGSS ``sharded_bootstrap_filter`` at phase 9's
+    shape within max(5 SE, 0.1) of the Kalman value; (d) the SIR BPF
+    ``pmmh()`` on the engine at 4096 chains, m = 32, phase 24's engine
+    pilot (100 steps, 10 repetitions):
+    finite samples, acceptance strictly inside (0, 1), target_n in [50,
+    1000], tuning and sampling seconds and the seconds a filter day waits
+    in gloo collectives (``collective_clock``). The children's launches
+    count in the kernels line.
 
 Each kernel's bound is the larger of the bytes it must move over the
 card's memory rate and its lane instructions over the card's rate for
@@ -199,6 +218,22 @@ METROPOLIS_PMMH_M, METROPOLIS_PMMH_BURN_IN = 24, 8
 CHECKPOINT_RUNS = (("sweep", 64, 16, 16, None),
                    ("engine", 16, 4, 4, dict(pilot_m=100, pilot_burn_in=25,
                                              pilot_reps=10)))
+# Phases 26 and 27, the multi-rank paths. NCCL refuses two ranks on one
+# card ("Duplicate GPU detected", seen on the H100 before these phases were
+# written), so NCCL runs as a one-rank group (26) and the two-rank logic
+# runs over gloo, which stages CUDA tensors through the host (27). A child
+# rank that fails, or outlives RANK_TIMEOUT_S seconds (start-up included),
+# fails the script.
+RANK_TIMEOUT_S = 300
+# Phase 27: (b) the particle-sharded SIR RMPF filter's particles (128 a
+# rank, the main path's width) and its root seed; (d) the particle-sharded
+# pmmh()'s steps, cut from phase 11's m = 512 to 32, and its pilot, cut
+# from phase 11's 200 steps and 20 repetitions to phase 24's engine pilot:
+# at phase 11's, (d) tuned for 86 s of phases 26-27's 205 s, 53 s of it
+# in gloo collectives (7 a filter day, 23 ms; H100, 700 W).
+SHARDED_PARTICLES, SHARDED_SEED = 256, 27
+SHARDED_PMMH_M, SHARDED_PMMH_BURN_IN = 32, 8
+SHARDED_PILOT = dict(pilot_m=100, pilot_burn_in=25, pilot_reps=10)
 # Observation gaps of the gapped sweep: 10 observations over 14 days.
 GAPS = (1, 2, 1, 1, 3, 1, 1, 2, 1, 1)
 # One H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bandwidth, and
@@ -1093,13 +1128,11 @@ def expect_launches(what, counts, launched, not_launched=()):
         raise AssertionError(f"{what}: launches {counts} (off: {bad})")
 
 
-def phase_pmmh(path, control, pf_wrapper="bootstrap_filter", m=PMMH_M,
-               burn_in=PMMH_BURN_IN):
-    """The public ``pmmh()`` with pilot tuning at full width on one path:
-    ``"sweep"`` (``pf_impl=sir_sweep_pf_impl(500, 70)``, K1) or
-    ``"engine"`` (the default filter on ``sir_model(transition=
-    "gillespie_pallas")``, K4 and K3), for one of the three filters.
-    Returns the kernel launch counts of the call and its output."""
+def sir_pmmh_args(path):
+    """``(y, model fns, log_priors, transform, keyword arguments)`` of the
+    SIR ``pmmh()`` runs of phases 11, 15, 26 and 27 on ``path``:
+    ``"sweep"`` (``pf_impl=sir_sweep_pf_impl(500, 70)``) or ``"engine"``
+    (the default filter on ``sir_model(transition="gillespie_pallas")``)."""
     from bayesssm_tpu_torch.models.sir import (
         simulate_sir,
         sir_aux_log_likelihood_fn,
@@ -1111,16 +1144,27 @@ def phase_pmmh(path, control, pf_wrapper="bootstrap_filter", m=PMMH_M,
     _, y = simulate_sir(seed=1405)
     fns, log_priors, transform = sir_model(500, 70,
                                            transition="gillespie_pallas")
-    pf_impl = sir_sweep_pf_impl(500, 70) if path == "sweep" else None
+    return y, fns, log_priors, transform, dict(
+        pf_impl=sir_sweep_pf_impl(500, 70) if path == "sweep" else None,
+        aux_log_likelihood_fn=sir_aux_log_likelihood_fn,
+        move_fn=sir_move_fn(500))
+
+
+def phase_pmmh(path, control, pf_wrapper="bootstrap_filter", m=PMMH_M,
+               burn_in=PMMH_BURN_IN):
+    """The public ``pmmh()`` with pilot tuning at full width on one path:
+    ``"sweep"`` (K1) or ``"engine"`` (K4 and K3), for one of the three
+    filters (``sir_pmmh_args``). Returns the kernel launch counts of the
+    call and its output."""
+    y, fns, log_priors, transform, kw = sir_pmmh_args(path)
+    pf_impl = kw["pf_impl"]
     counts, out = run_pmmh(
         f"{path}-{pf_wrapper}", y, fns, log_priors,
         {"lam": 0.5, "gamma": 0.2}, transform, control, m, burn_in,
         "pilot_m 2000->200 and pilot_reps 100->20 (bench.py's)"
         + ("" if m == PMMH_M else f"; m {PMMH_M}->{m}, burn_in "
            f"{PMMH_BURN_IN}->{burn_in}"),
-        pf_wrapper=pf_wrapper, pf_impl=pf_impl,
-        aux_log_likelihood_fn=sir_aux_log_likelihood_fn,
-        move_fn=sir_move_fn(500))
+        pf_wrapper=pf_wrapper, **kw)
     k34 = ("bssm_fused_resample", "bssm_gillespie")
     if pf_impl is not None:
         expect_launches(f"pmmh {path}", counts, ["bssm_sweep_sir"], k34)
@@ -1799,6 +1843,385 @@ def phase_host_resampling():
                              "definition")
 
 
+def sir_pmmh(path, control, pf_wrapper, m, burn_in, **kw):
+    """``pmmh()`` on SIR at 4096 chains exactly as phases 11 and 15 call
+    it (``run_pmmh``), with extra keyword arguments such as ``mesh``."""
+    import warnings
+
+    from bayesssm_tpu_torch import pmmh
+
+    y, fns, log_priors, transform, args = sir_pmmh_args(path)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # ESS/R-hat advice on short runs
+        return pmmh(pf_wrapper, y, m, *fns, log_priors,
+                    {"lam": 0.5, "gamma": 0.2}, burn_in, num_chains=CHAINS,
+                    param_transform=transform, seed=1405,
+                    tune_control=control, print_summary=False, **args, **kw)
+
+
+def pmmh_digest(out) -> dict:
+    """What phases 26 and 27 compare of a ``PMMHOutput``, as host arrays."""
+    return {"theta": {q: np.asarray(v) for q, v in out.theta_chain.items()},
+            "target_n": np.asarray(out.target_n),
+            "acceptance": np.asarray(out.acceptance_rate),
+            "timings": dict(out.timings)}
+
+
+def same_digest(a, b) -> bool:
+    """Whether two digests hold the same samples, counts and acceptance,
+    bit for bit."""
+    return (all(np.array_equal(a["theta"][q], b["theta"][q])
+                for q in b["theta"])
+            and np.array_equal(a["target_n"], b["target_n"])
+            and np.array_equal(a["acceptance"], b["acceptance"]))
+
+
+def same_run(digest, out) -> bool:
+    """Whether a digest holds ``out``'s samples, counts and acceptance."""
+    return same_digest(digest, pmmh_digest(out))
+
+
+def _rank_entry(rank, world, backend, store, job, kwargs, results):
+    """One child rank: joins the ``backend`` group on card 0, loads the
+    kernel library the parent built, runs ``job(**kwargs)`` and sends back
+    its result."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        from bayesssm_tpu_torch.ops import _build
+
+        _build.load_library()
+        dist.init_process_group(
+            backend, init_method=store, world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+        results.put((rank, "ok", job(**kwargs)))
+    except BaseException:  # report any failure of the rank, then exit
+        results.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(what, world, backend, job, **kwargs):
+    """``job(**kwargs)`` on ``world`` spawned ranks of one ``backend``
+    group on card 0 (``file://`` rendezvous); returns each rank's result.
+    A rank that raises, dies or outlives ``RANK_TIMEOUT_S`` fails the
+    phase, and every rank is stopped."""
+    import multiprocessing as mp
+    import queue
+    import tempfile
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # leave the children the card's memory
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    got, error = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_rank_entry,
+                             args=(rank, world, backend,
+                                   f"file://{tmp}/store", job, kwargs,
+                                   results))
+                 for rank in range(world)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        try:
+            while len(got) < world and error is None:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    error = f"outlived {RANK_TIMEOUT_S} s"
+                    break
+                try:
+                    rank, status, payload = results.get(
+                        timeout=min(left, 1.0))
+                except queue.Empty:
+                    dead = [r for r, proc in enumerate(procs)
+                            if proc.exitcode not in (None, 0)
+                            and r not in got]
+                    if dead:
+                        error = (f"rank {dead[0]} exited with code "
+                                 f"{procs[dead[0]].exitcode}")
+                    continue
+                if status == "error":
+                    error = f"rank {rank} failed:\n{payload}"
+                else:
+                    got[rank] = payload
+        finally:
+            for proc in procs:
+                if error is not None:
+                    proc.kill()
+                proc.join(timeout=30)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+    if error is not None:
+        raise AssertionError(f"{what}: {error}")
+    return [got[r] for r in range(world)]
+
+
+def job_one_rank_nccl(control):
+    """Phase 26's rank: the RMPF ``pmmh()`` of phase 15 on a one-rank NCCL
+    mesh, on the sweep path and on the engine."""
+    import torch.distributed as dist
+
+    from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.parallel import global_chain_mesh
+
+    mesh = global_chain_mesh()
+    out = {"backend": dist.get_backend(mesh.get_group("chains")),
+           "mesh": tuple(mesh.shape)}
+    for path in ("sweep", "engine"):
+        _build.reset_launches()
+        run = sir_pmmh(path, control, "resample_move_filter", FILTER_PMMH_M,
+                       FILTER_PMMH_BURN_IN, mesh=mesh)
+        out[path] = (pmmh_digest(run), dict(_build.launches))
+    return out
+
+
+def phase_nccl_one_rank(control, rmpf):
+    """Phase 26: a child process joins a one-rank NCCL group, builds
+    ``global_chain_mesh()`` and runs phase 15's RMPF ``pmmh()`` with
+    ``mesh=`` on both paths; each output and its launches equal phase
+    15's. Returns the launch counts."""
+    t0 = time.perf_counter()
+    (res,) = run_ranks("phase 26", 1, "nccl", job_one_rank_nccl,
+                       control=control)
+    counts = []
+    for path in ("sweep", "engine"):
+        digest, launched = res[path]
+        want_out, want_counts = rmpf[path]
+        same = same_run(digest, want_out)
+        say("nccl_one_rank", path=f"{path}-resample_move_filter",
+            chains=CHAINS, m=FILTER_PMMH_M, backend=res["backend"],
+            mesh=res["mesh"], bitwise_equal_phase_15=same,
+            launches={k: v for k, v in launched.items() if v},
+            launches_equal_phase_15=launched == want_counts,
+            tuning_s=digest["timings"]["tuning"],
+            sampling_s=digest["timings"]["sampling"])
+        if res["backend"] != "nccl" or not same or launched != want_counts:
+            raise AssertionError(f"phase 26 ({path}): the one-rank NCCL "
+                                 "mesh run differs from phase 15's")
+        counts.append(launched)
+    say("phase_26", seconds=time.perf_counter() - t0)
+    return counts
+
+
+@contextlib.contextmanager
+def collective_clock():
+    """Seconds and calls of the ``torch.distributed`` collectives that the
+    port's mesh code issues inside the block, each timed from a device
+    sync before it to one after it."""
+    import torch.distributed as dist
+
+    clock = {"s": 0.0, "calls": 0}
+    saved = dist.all_gather, dist.all_reduce
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                clock["s"] += time.perf_counter() - t0
+                clock["calls"] += 1
+        return call
+
+    dist.all_gather, dist.all_reduce = timed(saved[0]), timed(saved[1])
+    try:
+        yield clock
+    finally:
+        dist.all_gather, dist.all_reduce = saved
+
+
+def sharded_sir_inputs():
+    """Phase 27 (b)'s SIR observations, engine functions and theta (the
+    simulation's lam = 0.5, gamma = 0.2 on every chain)."""
+    from bayesssm_tpu_torch.models.sir import simulate_sir, sir_model
+
+    _, y = simulate_sir(seed=1405)
+    fns = sir_model(500, 70, transition="gillespie_pallas")[0]
+    theta = {"lam": np.full(CHAINS, 0.5, np.float32),
+             "gamma": np.full(CHAINS, 0.2, np.float32)}
+    return y, fns, theta
+
+
+def lgss_inputs():
+    """Phase 9's LGSS shape and data: (y, theta, chains, particles)."""
+    from bayesssm_tpu_torch.models.lgss import simulate_lgss
+
+    a, sx, sy, c, n = 0.9, 0.6, 0.4, 512, 1024
+    _, y = simulate_lgss(11, t_val=20, a=a, sigma_x=sx, sigma_y=sy)
+    theta = {"a": np.full(c, a, np.float32),
+             "sigma_x": np.full(c, sx, np.float32),
+             "sigma_y": np.full(c, sy, np.float32)}
+    return y, theta, c, n
+
+
+def job_two_ranks_gloo(control):
+    """Phase 27's rank, two ranks over gloo on card 0: (a) phase 15's
+    sweep-path RMPF ``pmmh()`` on a 2 x 1 chains mesh; on a 1 x 2 particle
+    mesh (b) the SIR RMPF ``sharded_particle_filter`` on the engine, (c)
+    the LGSS ``sharded_bootstrap_filter`` and (d) the SIR BPF ``pmmh()``
+    on the engine with its collectives timed."""
+    from bayesssm_tpu_torch import default_tune_control
+    from bayesssm_tpu_torch.models.lgss import lgss_model
+    from bayesssm_tpu_torch.models.sir import sir_move_fn
+    from bayesssm_tpu_torch.ops import _build, threefry
+    from bayesssm_tpu_torch.parallel import (
+        make_chain_mesh,
+        sharded_bootstrap_filter,
+        sharded_particle_filter,
+    )
+
+    out = {}
+    _build.reset_launches()
+    run = sir_pmmh("sweep", control, "resample_move_filter", FILTER_PMMH_M,
+                   FILTER_PMMH_BURN_IN, mesh=make_chain_mesh(2))
+    out["a"] = (pmmh_digest(run), dict(_build.launches))
+
+    mesh = make_chain_mesh(2, particle_axis_size=2)
+    y, fns, theta = sharded_sir_inputs()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ll, _ = sharded_particle_filter(
+        threefry.key(SHARDED_SEED), y, SHARDED_PARTICLES, *fns, theta,
+        num_chains=CHAINS, mesh=mesh, algorithm="RMPF",
+        move_fn=sir_move_fn(500))
+    ll = ll.cpu().numpy()
+    out["b"] = (ll, dict(_build.launches), time.perf_counter() - t0)
+
+    y, theta, c, n = lgss_inputs()
+    ll, _ = sharded_bootstrap_filter(
+        threefry.key(SHARDED_SEED), y, n, *lgss_model()[0], theta,
+        num_chains=c, mesh=mesh, resample_algorithm="SISR")
+    out["c"] = ll.cpu().numpy()
+
+    with collective_clock() as clock:
+        _build.reset_launches()
+        run = sir_pmmh("engine", default_tune_control(**SHARDED_PILOT),
+                       "bootstrap_filter", SHARDED_PMMH_M,
+                       SHARDED_PMMH_BURN_IN, mesh=mesh)
+    out["d"] = (pmmh_digest(run), dict(_build.launches), dict(clock))
+    return out
+
+
+def phase_gloo_two_ranks(dev, control, rmpf):
+    """Phase 27: two ranks on card 0 over gloo (``job_two_ranks_gloo``).
+    (a) equals phase 15's sweep RMPF bit for bit on both ranks; (b) K4
+    once a day on each rank and no K3, finite log-likelihoods whose mean
+    is within max(5 SE, 0.1) of the unsharded engine's at 256 particles;
+    (c) within max(5 SE, 0.1) of the Kalman value; (d) finite samples,
+    acceptance strictly inside (0, 1), target_n in [50, 1000]. The two
+    ranks of the particle mesh return the same bits. Returns the launch
+    counts of both ranks."""
+    from bayesssm_tpu_torch.filters import resample_move_filter
+    from bayesssm_tpu_torch.models.sir import sir_move_fn
+    from bayesssm_tpu_torch.ops import threefry
+    from bayesssm_tpu_torch.utils.kalman import kalman_loglik
+
+    t0 = time.perf_counter()
+    res = run_ranks("phase 27", 2, "gloo", job_two_ranks_gloo,
+                    control=control)
+    counts = []
+    k34 = ("bssm_fused_resample", "bssm_gillespie")
+
+    for rank, r in enumerate(res):                          # (a)
+        digest, launched = r["a"]
+        same = same_run(digest, rmpf["sweep"][0])
+        say("gloo_two_ranks", part="a", rank=rank, mesh="2x1",
+            path="sweep-resample_move_filter", chains=CHAINS,
+            chains_on_rank=CHAINS // 2, bitwise_equal_phase_15=same,
+            launches={k: v for k, v in launched.items() if v},
+            tuning_s=digest["timings"]["tuning"],
+            sampling_s=digest["timings"]["sampling"])
+        expect_launches("phase 27 (a)", launched, ["bssm_sweep_sir"], k34)
+        if not same:
+            raise AssertionError("phase 27 (a): the chains mesh differs "
+                                 "from phase 15's run")
+        counts.append(launched)
+
+    y, fns, theta = sharded_sir_inputs()                    # (b)
+    keys = threefry.fold_in(threefry.key(SHARDED_SEED).to(dev),
+                            torch.arange(CHAINS, device=dev))
+    plain = resample_move_filter(
+        keys, y, SHARDED_PARTICLES, *fns, sir_move_fn(500),
+        theta={k: torch.as_tensor(v, device=dev) for k, v in theta.items()},
+        return_particles=False).loglike.double().cpu().numpy()
+    lls = [r["b"][0] for r in res]
+    ll = lls[0].astype(np.float64)
+    se = math.sqrt(ll.var() / ll.size + plain.var() / plain.size)
+    for rank, r in enumerate(res):
+        _, launched, secs = r["b"]
+        say("gloo_two_ranks", part="b", rank=rank, mesh="1x2",
+            filter="RMPF sharded_particle_filter", chains=CHAINS,
+            particles=SHARDED_PARTICLES,
+            lanes_on_rank=SHARDED_PARTICLES // 2, days=len(y),
+            launches={k: v for k, v in launched.items() if v}, seconds=secs)
+        if (launched["bssm_gillespie"] != len(y)
+                or launched["bssm_fused_resample"] != 0):
+            raise AssertionError("phase 27 (b): K4 must launch once a day "
+                                 "on each rank and K3 never")
+        counts.append(launched)
+    say("gloo_two_ranks", part="b", sharded_mean=ll.mean(),
+        unsharded_mean=plain.mean(), se=se,
+        ranks_bitwise_equal=bool(np.array_equal(lls[0], lls[1])),
+        finite=bool(np.isfinite(ll).all()))
+    if (not np.isfinite(ll).all() or not np.array_equal(lls[0], lls[1])
+            or abs(ll.mean() - plain.mean()) >= max(5 * se, 0.1)):
+        raise AssertionError("phase 27 (b): the particle-sharded RMPF is "
+                             "off the unsharded engine")
+
+    y, theta, c, n = lgss_inputs()                          # (c)
+    truth = kalman_loglik(y, 0.9, 1.0, 0.6, 0.4, p0=1.0)
+    ll = res[0]["c"].astype(np.float64)
+    se = ll.std() / math.sqrt(c)
+    say("gloo_two_ranks", part="c", mesh="1x2",
+        filter="LGSS sharded_bootstrap_filter SISR", chains=c,
+        particles=n, mean=ll.mean(), kalman=truth, se=se,
+        ranks_bitwise_equal=bool(np.array_equal(res[0]["c"], res[1]["c"])))
+    if (not np.isfinite(ll).all()
+            or not np.array_equal(res[0]["c"], res[1]["c"])
+            or abs(ll.mean() - truth) >= max(5 * se, 0.1)):
+        raise AssertionError("phase 27 (c): the sharded LGSS filter is off "
+                             "the Kalman value")
+
+    for rank, r in enumerate(res):                          # (d)
+        digest, launched, clock = r["d"]
+        samples = np.stack(list(digest["theta"].values()))
+        acc = float(digest["acceptance"].mean())
+        tn = digest["target_n"]
+        days = launched["bssm_gillespie"]
+        say("gloo_two_ranks", part="d", rank=rank, mesh="1x2",
+            path="engine-bootstrap_filter pmmh", chains=CHAINS,
+            m=SHARDED_PMMH_M, burn_in=SHARDED_PMMH_BURN_IN,
+            cut=f"m {PMMH_M}->{SHARDED_PMMH_M}; pilot_m 200->"
+            f"{SHARDED_PILOT['pilot_m']}, pilot_reps 20->"
+            f"{SHARDED_PILOT['pilot_reps']}",
+            tuning_s=digest["timings"]["tuning"],
+            sampling_s=digest["timings"]["sampling"],
+            collective_s=clock["s"], collective_calls=clock["calls"],
+            filter_days=days, collective_s_per_day=clock["s"] / days,
+            acceptance=acc, target_n_min=int(tn.min()),
+            target_n_max=int(tn.max()),
+            means={q: float(v.mean()) for q, v in digest["theta"].items()},
+            launches={k: v for k, v in launched.items() if v})
+        if (not np.isfinite(samples).all() or not 0.0 < acc < 1.0
+                or tn.min() < 50 or tn.max() > 1000
+                or launched["bssm_fused_resample"] != 0 or days == 0):
+            raise AssertionError("phase 27 (d): the particle-sharded pmmh()")
+        counts.append(launched)
+    if not same_digest(res[0]["d"][0], res[1]["d"][0]):
+        raise AssertionError("phase 27 (d): the two ranks' outputs differ")
+    say("phase_27", seconds=time.perf_counter() - t0)
+    return counts
+
+
 def pmmh_phase2(dev, path, out):
     """The filter and a sampler state as ``pmmh()``'s phase 2 holds them
     after ``out``: the same lane bound and per-chain counts, the chains'
@@ -1926,11 +2349,14 @@ def main() -> int:
     phase_sweep_branches(dev)
     phase_fused_resample_aux(dev)
     main_counts += phase_filters_mh(dev)
+    rmpf = {}   # phase 15's RMPF runs, which phases 26 and 27 repeat
     for wrapper in ("auxiliary_filter", "resample_move_filter"):
         for path in ("sweep", "engine"):
-            main_counts.append(phase_pmmh(path, control, wrapper,
-                                          FILTER_PMMH_M,
-                                          FILTER_PMMH_BURN_IN)[0])
+            run_counts, out = phase_pmmh(path, control, wrapper,
+                                         FILTER_PMMH_M, FILTER_PMMH_BURN_IN)
+            main_counts.append(run_counts)
+            if wrapper == "resample_move_filter":
+                rmpf[path] = (out, run_counts)
     phase_lane_bound(dev)
     sin_row = phase_sinusoidal_kernel(dev)
     mv_row, run_counts = phase_lgss_mv(dev)
@@ -1949,6 +2375,9 @@ def main() -> int:
     main_counts += phase_checkpoint(control)
     phase_host_resampling()
     say("phases_23_25", seconds=time.perf_counter() - t_new)
+    # The children's launches count with the main path's.
+    main_counts += phase_nccl_one_rank(control, rmpf)
+    main_counts += phase_gloo_two_ranks(dev, control, rmpf)
     total = {name: sum(c[name] for c in main_counts)
              for name in _build.launches}
 

@@ -234,3 +234,58 @@ def test_jax_refuses_a_port_snapshot(tmp_path):
     run(m=20, checkpoint_every=20, checkpoint_path=str(ck))
     with pytest.raises(ValueError, match="unsupported checkpoint version 2"):
         j_load_checkpoint(ck)
+
+
+# ---- under a mesh: two gloo ranks ---------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """``run()``'s chains on a 2 x 1 chains mesh, one chain a rank
+    (``tests/_torch_dist.py::checkpoint_session``); returns each rank's
+    results and the snapshot directory."""
+    import _torch_dist as td
+
+    ck_dir = tmp_path_factory.mktemp("mesh_ck")
+    ranks = td.run_session(
+        2, [("ck", td.checkpoint_session, dict(ck_dir=str(ck_dir)))],
+        tmp_path_factory.mktemp("ranks"))
+    return ranks["ck"], ck_dir
+
+
+def _same_digest(a, out):
+    for p in out.theta_chain:
+        np.testing.assert_array_equal(a["theta"][p], out.theta_chain[p])
+    np.testing.assert_array_equal(a["acceptance"], out.acceptance_rate)
+    np.testing.assert_array_equal(a["target_n"], out.target_n)
+
+
+def test_mesh_checkpoint_leaves_no_temporary_file(mesh_runs):
+    """Both ranks write every snapshot, each through ``<path>.tmp<rank>``,
+    and rename it over the same path: no temporary file stays."""
+    got, ck_dir = mesh_runs
+    for rank in got:
+        assert rank["after_chunked"] == ["whole.npz"]
+        assert rank["after_part"] == ["part.npz", "whole.npz"]
+        assert rank["after_resumed"] == ["part.npz", "part30.npz",
+                                         "whole.npz"]
+    state = load_checkpoint(ck_dir / "whole.npz")
+    assert state["step"] == 80 and state["samples"].shape == (2, 80, 3)
+
+
+def test_mesh_checkpoint_and_resume_equal_the_uninterrupted_run(mesh_runs):
+    """The chunked run and the run resumed from m = 30, on every rank,
+    equal the uninterrupted run without a mesh bit for bit (the JAX
+    two-process worker's "PMMH CK-RESUME BIT-MATCH")."""
+    got, _ = mesh_runs
+    for rank in got:
+        _same_digest(rank["chunked"], full())
+        _same_digest(rank["resumed"], full())
+
+
+def test_mesh_snapshot_resumes_on_one_process(mesh_runs):
+    """The mesh's m = 30 snapshot holds every chain: one process without a
+    mesh resumes it and ends where the uninterrupted run does."""
+    _, ck_dir = mesh_runs
+    resumed = run(m=80, checkpoint_path=str(ck_dir / "part30.npz"),
+                  resume=True, checkpoint_every=25)
+    assert_same_chains(full(), resumed)

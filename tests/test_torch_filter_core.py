@@ -340,8 +340,12 @@ def test_engine_errors_and_unported_options():
         assert res.algorithm == algo and res.loglike.shape == (1,)
         assert np.isfinite(res.loglike.numpy()).all()
     assert (rmpf.ess.numpy() == 8).all()              # RMPF forces SISR
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # particle_axis is ported: it needs a current mesh naming the axis (as
+    # JAX needs shard_map), and an axis size dividing the lanes.
+    with pytest.raises(NameError, match="unbound axis name"):
         particle_filter_core(*args, particle_axis="p", particle_axis_size=2)
+    with pytest.raises(ValueError, match="divisible by particle_axis_size"):
+        particle_filter_core(*args, particle_axis="p", particle_axis_size=3)
     with pytest.raises(ValueError, match="chain key words"):
         particle_filter_core(words[0], *args[1:])
     with pytest.raises(ValueError, match="threshold must be non-negative"):

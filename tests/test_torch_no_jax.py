@@ -26,6 +26,8 @@ def _imports(path):
 def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "examples" / "torch_custom_sweep_kernel.py",
+        ROOT / "examples" / "torch_many_chains_mesh.py",
+        ROOT / "tests" / "_torch_dist.py",
         *sorted((ROOT / "scripts").glob("torch_*.py"))]
     assert len(files) > 10
     for path in files:

@@ -105,16 +105,33 @@ def test_validation_messages_match_jax(case):
 
 
 # Checkpointing (item 5) runs since it was ported: tests/test_torch_checkpoint.py.
+# ``mesh`` (item 6) raised NotImplementedError naming its ROADMAP item until
+# it was ported; it runs now (many ranks: tests/test_torch_sharding.py).
 NOT_PORTED = {
-    "mesh": (dict(mesh=object()), "item 6"),
+    "mesh": dict(num_chains=2),
 }
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_unported_options_name_their_roadmap_item(case):
-    kw, match = NOT_PORTED[case]
-    with pytest.raises(NotImplementedError, match=match):
-        pmmh(**_call(**kw))
+    """A one-process ``mesh`` (the 1 x 1 mesh of a process with no group)
+    runs and equals the run without a mesh bit for bit."""
+    import torch.distributed as dist
+
+    from bayesssm_tpu_torch.parallel import make_chain_mesh
+
+    had_group = dist.is_initialized()
+    try:
+        with_mesh = run_small(mesh=make_chain_mesh(devices="cpu"),
+                              **NOT_PORTED[case])
+    finally:
+        if dist.is_initialized() and not had_group:
+            dist.destroy_process_group()
+    plain = run_small(**NOT_PORTED[case])
+    for q in plain.theta_chain:
+        np.testing.assert_array_equal(with_mesh.theta_chain[q],
+                                      plain.theta_chain[q])
+    np.testing.assert_array_equal(with_mesh.target_n, plain.target_n)
 
 
 # The APF and RMPF cases that raised NotImplementedError above until the
