@@ -203,11 +203,11 @@ def obs_times_to_gaps(obs_times, num_obs: int) -> tuple:
     return tuple(np.diff(ot, prepend=0).tolist())
 
 
-def _observations(y, device) -> torch.Tensor:
+def _observations(y, device, dtype=torch.float32) -> torch.Tensor:
     if isinstance(y, torch.Tensor):
         if y.dtype == torch.bool or y.is_complex():
             raise ValueError("y must be numeric")
-        ys = y.to(device=device, dtype=torch.float32)
+        ys = y.to(device=device, dtype=dtype)
     else:
         try:
             y_host = np.asarray(y)
@@ -215,7 +215,7 @@ def _observations(y, device) -> torch.Tensor:
                 raise TypeError
         except (TypeError, ValueError):
             raise ValueError("y must be numeric") from None
-        ys = torch.as_tensor(y_host, dtype=torch.float32, device=device)
+        ys = torch.as_tensor(y_host, dtype=dtype, device=device)
     if ys.ndim == 1:
         ys = ys[:, None]
     if ys.ndim != 2:
@@ -367,6 +367,9 @@ def particle_filter_core(
         k_init = threefry.fold_in(k_init, p_idx)
     particles0 = canon(init(key=k_init, num_particles=n, **theta), "init_fn")
     dtype = particles0.dtype
+    if dtype == torch.float64:
+        # A float64 model filters in float64, its observations too.
+        ys = _observations(y, dev, dtype)
 
     n_f = _per_chain(num_particles, c, dtype, dev)
     lane = torch.arange(n, dtype=dtype, device=dev)

@@ -147,7 +147,25 @@ Phases:
     finite samples, acceptance strictly inside (0, 1), target_n in [50,
     1000], tuning and sampling seconds and the seconds a filter day waits
     in gloo collectives (``collective_clock``). The children's launches
-    count in the kernels line.
+    count in the kernels line;
+28. the port's bench entry, ``bench_torch.main(argv)`` in-process
+    (``BENCH_RUNS``): ``bench.py``'s default (SIR BPF on the whole sweep)
+    and ``--transition gillespie_pallas`` at full width (4096 chains, 64
+    steps x 2 calls x 5 reps), then ``--quick`` for ``--config apf``,
+    ``rmpf``, ``sinusoidal``, ``pmmh`` and ``--transition tauleap``: each
+    record's four keys, a finite positive value and ``vs_baseline``, and
+    the launches each route implies a filter call (K1 once on
+    ``sir_sweep``, K4 and K3 ten times on ``gillespie_pallas``, K3 ten
+    times and no K4 on ``tauleap``, K1c once on ``sinusoidal``; K1 alone
+    for ``pmmh``), printed beside the card's name and power limit;
+29. the examples on the card (``EXAMPLE_RUNS``):
+    ``examples/torch_sinusoidal_readme.py --fused`` at the README's m = 500
+    (K1c only), its posterior means within ``tests/test_parity.py``'s 3-SE
+    bands of the README's table and target_n in [50, 1000];
+    ``examples/torch_stochastic_sir.py`` at its own settings (K4 and K3)
+    and ``examples/torch_stochastic_volatility.py`` cut as
+    ``EXAMPLE_RUNS`` says (K3): finite samples, acceptance strictly inside
+    (0, 1), means, SDs and ESS printed.
 
 Each kernel's bound is the larger of the bytes it must move over the
 card's memory rate and its lane instructions over the card's rate for
@@ -182,6 +200,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+import bench_torch  # noqa: E402  (the port's bench entry, beside this file)
+
 ROUTE = "cuda"
 SWEEP_SOURCE = "bayesssm_tpu_torch/csrc/sweep.cuh"
 SWEEP_REPLACES = "bayesssm_tpu/ops/sweep_builder.py:146"
@@ -197,7 +217,7 @@ SIN_REPLACES = "bayesssm_tpu/models/sinusoidal.py:55"
 # K1 with a user's callbacks: the JAX builder's public escape hatch.
 GEN_REPLACES = "bayesssm_tpu/ops/sweep_builder.py:146"
 LGSS_MV_REPLACES = "bayesssm_tpu/ops/lgss_sweep_pallas.py:116"
-SIN_THETA0, SIN_PROP_SD = (0.8, 1.0, 0.5), (0.05, 0.1, 0.1)  # bench.py:46-47
+SIN_THETA0 = bench_torch.THETA0["sinusoidal"]   # bench.py:46-47
 CHAINS, PARTICLES = 4096, 128
 AGREE_TOL = 1e-3       # |d loglike| per chain, kernel vs plain sweep
 AGREE_SHARE = 0.99     # share of chains that must agree within AGREE_TOL
@@ -598,30 +618,17 @@ def phase_sweep_branches(dev):
         sweep_check(dev, what, algorithm, gaps)
 
 
-def sir_sampler(dev):
-    """Priors, transforms and a diagonal-proposal sampler state of 4096
-    chains at theta0 = (0.5, 0.2), as the JAX benchmark starts them."""
-    from bayesssm_tpu_torch.models.sir import sir_model
-    from bayesssm_tpu_torch.pmmh.driver import init_chain_state
-    from bayesssm_tpu_torch.pmmh.transforms import resolve_transforms
-
-    _, log_priors, transform = sir_model()
-    names = list(log_priors)
-    factors = np.tile(np.diag([0.1, 0.1]).astype(np.float32), (CHAINS, 1, 1))
-    state = init_chain_state([0.5, 0.2], factors, PARTICLES, 1405, dev)
-    return (state, [log_priors[p] for p in names],
-            resolve_transforms(transform, names))
-
-
-def run_mh(dev, what, pf, steps, per_step, sampler=sir_sampler):
+def run_mh(dev, what, pf, steps, per_step, model="sir"):
     """One warm-up MH step, then ``steps`` timed steps with the launch
-    counts set to 0 just before and read just after; ``per_step`` maps a
-    kernel to the launches each step must make. Returns the counts, the
-    warm state, priors and transforms."""
+    counts set to 0 just before and read just after, from
+    ``bench_torch.sampler(model)``'s state at 4096 chains; ``per_step``
+    maps a kernel to the launches each step must make. Returns the counts,
+    the warm state, priors and transforms."""
     from bayesssm_tpu_torch.ops import _build
     from bayesssm_tpu_torch.pmmh.driver import sample_chains
 
-    state, prior_fns, transforms = sampler(dev)
+    state, prior_fns, transforms = bench_torch.sampler(model, CHAINS,
+                                                       PARTICLES, dev)
     warm = sample_chains(pf, state, 2, 1, prior_fns, transforms)
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -654,18 +661,9 @@ def plain_rate(dev, what, pf, state, prior_fns, transforms, steps):
         plain_steps=steps)
 
 
-def sweep_pf(algorithm="BPF"):
-    from bayesssm_tpu_torch.models.sir import simulate_sir, sir_sweep_pf_impl
-
-    _, y = simulate_sir(seed=1405)
-    return sir_sweep_pf_impl(500, 70)(
-        y, PARTICLES, ["lam", "gamma"], None, None, algorithm, "SISAR",
-        "stratified", False, max_particles=PARTICLES)
-
-
 def phase_main_path(dev):
     _, op, y2 = sir_inputs(dev)
-    pf = sweep_pf()
+    pf = bench_torch.sir_pf(bench_torch.observations("bpf"), PARTICLES)
     counts, state, prior_fns, transforms = run_mh(
         dev, "main", pf, 64, {"bssm_sweep_sir": 1})
 
@@ -974,31 +972,21 @@ def phase_engine_lgss(dev):
 
 
 def engine_pf(dev, plain=False, algorithm="BPF"):
-    """The engine's batched filter: ``_make_pf_loglike`` on SIR with the
+    """The engine's batched filter: ``bench_torch.sir_pf`` on SIR with the
     per-day kernels for ``algorithm``, or the bootstrap filter on their
     plain versions (portable weight step, plain day-step) when
     ``plain``."""
-    from bayesssm_tpu_torch.models.sir import (
-        simulate_sir,
-        sir_aux_log_likelihood_fn,
-        sir_model,
-        sir_move_fn,
-    )
+    from bayesssm_tpu_torch.models.sir import sir_model
     from bayesssm_tpu_torch.ops.gillespie import gillespie_step_reference
-    from bayesssm_tpu_torch.pmmh.tuning import _make_pf_loglike
 
-    _, y = simulate_sir(seed=1405)
-    (init_fn, trans_fn, ll_fn), log_priors, _ = sir_model(
+    y = bench_torch.observations("bpf")
+    if not plain:
+        return bench_torch.sir_pf(y, PARTICLES, algorithm, "gillespie_pallas")
+    from bayesssm_tpu_torch.filters import bootstrap_filter
+
+    (init_fn, _, ll_fn), log_priors, _ = sir_model(
         500, 70, transition="gillespie_pallas")
     names = list(log_priors)
-    if not plain:
-        return _make_pf_loglike(
-            y, PARTICLES, names,
-            (init_fn, trans_fn, ll_fn, sir_aux_log_likelihood_fn,
-             sir_move_fn(500)),
-            None, algorithm, "SISAR", "stratified", False,
-            max_particles=PARTICLES)
-    from bayesssm_tpu_torch.filters import bootstrap_filter
 
     ys = torch.as_tensor(y, dtype=torch.float32, device=dev)
 
@@ -1033,7 +1021,9 @@ def phase_filters_mh(dev):
     counts = []
     for algorithm, per_day in (("APF", 2), ("RMPF", 1)):
         counts.append(run_mh(dev, f"sweep_{algorithm.lower()}",
-                             sweep_pf(algorithm), 64,
+                             bench_torch.sir_pf(
+                                 bench_torch.observations("bpf"), PARTICLES,
+                                 algorithm), 64,
                              {"bssm_sweep_sir": 1})[0])
         counts.append(run_mh(
             dev, f"engine_{algorithm.lower()}",
@@ -1289,51 +1279,16 @@ def phase_lgss_mv(dev):
     return rows["lgss_mv"], counts
 
 
-def sin_sampler(dev):
-    """The README model's priors, ``bench.py --config sinusoidal``'s
-    log-space proposal (sd 0.05, 0.1, 0.1) and 4096 chains at theta0 =
-    (0.8, 1.0, 0.5)."""
-    from bayesssm_tpu_torch.models.sinusoidal import sinusoidal_model
-    from bayesssm_tpu_torch.pmmh.driver import init_chain_state
-    from bayesssm_tpu_torch.pmmh.transforms import resolve_transforms
-
-    _, log_priors, _ = sinusoidal_model()
-    names = list(log_priors)
-    factors = np.tile(np.diag(SIN_PROP_SD).astype(np.float32),
-                      (CHAINS, 1, 1))
-    state = init_chain_state(SIN_THETA0, factors, PARTICLES, 1405, dev)
-    return (state, [log_priors[q] for q in names],
-            resolve_transforms({q: "log" for q in names}, names))
-
-
-def model_pf(path, y, fns, names, sweep_factory):
-    """The filter ``sample_chains`` takes on one path at 128 lanes: the
-    whole sweep (``sweep_factory``) or the engine's bootstrap filter."""
-    from bayesssm_tpu_torch.pmmh.tuning import _make_pf_loglike
-
-    factory = sweep_factory if path == "sweep" else _make_pf_loglike
-    return factory(y, PARTICLES, names, (*fns, None, None), None, "BPF",
-                   "SISAR", "stratified", False, max_particles=PARTICLES)
-
-
 def phase_sinusoidal_mh(dev):
     """Phase 19: ``bench.py --config sinusoidal`` on both paths."""
-    from bayesssm_tpu_torch.models.sinusoidal import (
-        simulate_sinusoidal,
-        sinusoidal_model,
-        sinusoidal_sweep_pf_impl,
-    )
-
-    _, y = simulate_sinusoidal(1405, 20)
-    fns, log_priors, _ = sinusoidal_model()
-    names = list(log_priors)
+    y = bench_torch.observations("sinusoidal")
     counts = []
     for path, steps, per_step in (
             ("sweep", 64, {"bssm_sweep_sinusoidal": 1}),
             ("engine", 32, {"bssm_fused_resample": len(y)})):
-        pf = model_pf(path, y, fns, names, sinusoidal_sweep_pf_impl())
+        pf = bench_torch.sinusoidal_pf(y, PARTICLES, path)
         run = run_mh(dev, f"sinusoidal_{path}", pf, steps, per_step,
-                     sampler=sin_sampler)
+                     model="sinusoidal")
         counts.append(run[0])
         if "--profile" in sys.argv[1:]:
             profile_steps(f"sinusoidal-{path}", pf, *run[1:])
@@ -1373,7 +1328,6 @@ def phase_readme_pmmh(control):
 def phase_sv_tauleap(dev, control):
     """Phase 21: ``pmmh()`` on stochastic volatility, and MH steps of
     tau-leaping SIR, through the engine."""
-    from bayesssm_tpu_torch.models.sir import simulate_sir, sir_model
     from bayesssm_tpu_torch.models.stochastic_volatility import (
         simulate_sv,
         sv_model,
@@ -1391,22 +1345,20 @@ def phase_sv_tauleap(dev, control):
     if not ((phi > 0) & (phi < 1)).all():
         raise AssertionError("pmmh sv: phi left (0, 1), so logit phi is "
                              "not finite")
-    _, y_sir = simulate_sir(seed=1405)
-    tfns, lp, _ = sir_model(500, 70, transition="tauleap")
-    pf = model_pf("engine", y_sir, tfns, list(lp), None)
+    y_sir = bench_torch.observations("bpf")
+    pf = bench_torch.sir_pf(y_sir, PARTICLES, "BPF", "tauleap")
     tau_counts = run_mh(dev, "tauleap_engine", pf, 8,
                         {"bssm_fused_resample": len(y_sir)})[0]
     return [sv_counts, tau_counts], sv_out
 
 
-def load_example():
-    """``examples/torch_custom_sweep_kernel.py``: the user's SV callbacks
-    and their ``pf_impl``."""
+def load_example(name="torch_custom_sweep_kernel"):
+    """``examples/<name>.py`` as a module: by default the user's SV
+    callbacks and their ``pf_impl``."""
     import importlib.util
 
-    path = ROOT / "examples" / "torch_custom_sweep_kernel.py"
-    spec = importlib.util.spec_from_file_location("torch_custom_sweep_kernel",
-                                                  path)
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1693,7 +1645,8 @@ def phase_metropolis_pmmh(dev, control, engine_out):
     expect_launches("pmmh metropolis (phase 2)", phase2, ["bssm_gillespie"],
                     "others")
     # Device ops of one MH step of phase 2, and of phase 11's engine step.
-    state, prior_fns, transforms = sir_sampler(dev)
+    state, prior_fns, transforms = bench_torch.sampler("sir", CHAINS,
+                                                       PARTICLES, dev)
     steps = {}
     for what, pf in (("metropolis", filters[0]), ("stratified", engine_pf(
             dev))):
@@ -2221,6 +2174,136 @@ def phase_gloo_two_ranks(dev, control, rmpf):
     say("phase_27", seconds=time.perf_counter() - t0)
     return counts
 
+# Phase 28: bench_torch.py's runs, as (arguments, launches a filter call):
+# bench.py's default at full width on both SIR routes, then --quick for the
+# other configurations and for tau-leaping. --config pmmh runs pmmh() four
+# times; its launches are only checked to route through K1 alone.
+BENCH_RUNS = (
+    ([], {"bssm_sweep_sir": 1}),
+    (["--transition", "gillespie_pallas"],
+     {"bssm_gillespie": 10, "bssm_fused_resample": 10}),
+    (["--quick", "--config", "apf"], {"bssm_sweep_sir": 1}),
+    (["--quick", "--config", "rmpf"], {"bssm_sweep_sir": 1}),
+    (["--quick", "--config", "sinusoidal"], {"bssm_sweep_sinusoidal": 1}),
+    (["--quick", "--config", "pmmh"], None),
+    (["--quick", "--transition", "tauleap"], {"bssm_fused_resample": 10}),
+)
+# Phase 29: (example, arguments of its main(), its pilot's
+# default_tune_control arguments or None for the example's own, the
+# kernels it must launch). The README call (3.8-7.6 s) and the SIR
+# vignette (15.9-26.3 s) run their own settings. The SV example is
+# host-bound on the engine at T = 100, 0.2-0.5 s an MH or pilot step at 2
+# chains: at its own m 500 and pilot_m 500 it took 319.9 s
+# (scripts/torch_bench_examples.py), at 200 and 200 here 189.1 s (H100
+# 80GB HBM3, 700 W). It is cut to m 500 -> 50, burn_in 100 -> 10,
+# pilot_m 500 -> 50 and pilot_burn_in 100 -> 10.
+EXAMPLE_RUNS = (
+    ("torch_sinusoidal_readme", dict(fused=True), None,
+     ["bssm_sweep_sinusoidal"]),
+    ("torch_stochastic_sir", {}, None,
+     ["bssm_gillespie", "bssm_fused_resample"]),
+    ("torch_stochastic_volatility", dict(m=50, burn_in=10),
+     dict(pilot_m=50, pilot_burn_in=10, pilot_reps=20),
+     ["bssm_fused_resample"]),
+)
+
+
+def phase_bench_entry(smi):
+    """Phase 28: ``bench_torch.main(argv)`` in-process for each of
+    ``BENCH_RUNS``, the launch counts set to 0 just before and read just
+    after. Each record has the four keys with a finite positive value and
+    ``vs_baseline``; each filter call of the timed loop (the warm-up call's
+    initial evaluation and steps, then reps x calls x steps) launches what
+    its route implies and nothing else. Returns the counts."""
+    from bayesssm_tpu_torch.ops import _build
+
+    counts = []
+    for argv, per_call in BENCH_RUNS:
+        args = bench_torch.parse_args(argv)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rec = bench_torch.main(argv)
+        seconds = time.perf_counter() - t0
+        run = dict(_build.launches)
+        counts.append(run)
+        say("bench_entry", argv=" ".join(argv) or "(defaults)",
+            record=json.dumps(rec), seconds=f"{seconds:.2f}",
+            launches={k: v for k, v in run.items() if v}, card=repr(smi))
+        if (list(rec) != ["metric", "value", "unit", "vs_baseline"]
+                or not rec["metric"].startswith("cuda_pmmh_samples_per_sec_")
+                or not all(np.isfinite(rec[k]) and rec[k] > 0
+                           for k in ("value", "vs_baseline"))):
+            raise AssertionError(f"bench_torch {argv}: record {rec}")
+        if per_call is None:
+            expect_launches(f"bench_torch {argv}", run, ["bssm_sweep_sir"],
+                            "others")
+            continue
+        filter_calls = 1 + args.steps * (1 + args.reps * args.calls)
+        for name in run:
+            if run[name] != per_call.get(name, 0) * filter_calls:
+                raise AssertionError(
+                    f"bench_torch {argv}: {name} launched {run[name]} "
+                    f"times in {filter_calls} filter calls")
+    return counts
+
+
+def phase_examples(smi):
+    """Phase 29: the three examples' ``main(device="cuda")``, the launch
+    counts set to 0 just before each and read just after: the README call
+    with ``--fused`` (K1c) held to ``tests/test_parity.py``'s 3-SE bands
+    (``parity``) and target_n to [50, 1000]; the SIR vignette (K4 and K3)
+    and stochastic volatility (K3): finite samples and an acceptance rate
+    strictly inside (0, 1). Returns the counts."""
+    import warnings
+
+    from bayesssm_tpu_torch import default_tune_control
+    from bayesssm_tpu_torch.ops import _build
+
+    counts = []
+    for name, kw, pilot, kernels in EXAMPLE_RUNS:
+        ex = load_example(name)
+        if pilot is not None:
+            kw = dict(kw, tune_control=default_tune_control(**pilot))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # ESS/R-hat advice, 2 chains
+            out = ex.main(device="cuda", **kw)
+        seconds = time.perf_counter() - t0
+        run = dict(_build.launches)
+        counts.append(run)
+        expect_launches(name, run, kernels, "others")
+        summ = out.summary()
+        samples = np.stack(list(out.theta_chain.values()))
+        acc = out.acceptance_rate
+        say("example", name=name,
+            **{k: v for k, v in kw.items() if k != "tune_control"},
+            pilot=pilot,
+            kept_samples=samples.shape[2], seconds=f"{seconds:.2f}",
+            tuning_s=out.timings["tuning"],
+            sampling_s=out.timings["sampling"],
+            target_n=out.target_n.tolist(), acceptance=acc.tolist(),
+            launches={k: v for k, v in run.items() if v}, card=repr(smi))
+        for q, row in summ.items():
+            say("example", name=name, param=q, mean=row["mean"],
+                sd=row["sd"], ess=row["ESS"], rhat=row["Rhat"])
+        if not np.isfinite(samples).all() or not 0.0 < acc.mean() < 1.0:
+            raise AssertionError(f"{name}: samples not finite, or the "
+                                 "acceptance rate is degenerate")
+        if hasattr(ex, "parity"):
+            if out.target_n.min() < 50 or out.target_n.max() > 1000:
+                raise AssertionError(f"{name}: target_n outside [50, 1000]")
+            for q, (mean, sd, ess, diff, band) in ex.parity(out).items():
+                say("readme_parity", param=q, mean=mean, sd=sd, ess=ess,
+                    anchor=ex.README_ANCHOR[q][0], diff=diff, band=band,
+                    inside=bool(diff < band))
+                if not diff < band:
+                    raise AssertionError(
+                        f"{name}: {q} mean {mean} is {diff} from the "
+                        f"README's {ex.README_ANCHOR[q][0]}, outside the "
+                        f"3-SE band {band}")
+    return counts
+
 
 def pmmh_phase2(dev, path, out):
     """The filter and a sampler state as ``pmmh()``'s phase 2 holds them
@@ -2378,6 +2461,10 @@ def main() -> int:
     # The children's launches count with the main path's.
     main_counts += phase_nccl_one_rank(control, rmpf)
     main_counts += phase_gloo_two_ranks(dev, control, rmpf)
+    t_new = time.perf_counter()
+    main_counts += phase_bench_entry(smi)
+    main_counts += phase_examples(smi)
+    say("phases_28_29", seconds=time.perf_counter() - t_new)
     total = {name: sum(c[name] for c in main_counts)
              for name in _build.launches}
 

@@ -25,11 +25,15 @@ def _imports(path):
 
 def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "torch_custom_sweep_kernel.py",
-        ROOT / "examples" / "torch_many_chains_mesh.py",
+        ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+        *sorted((ROOT / "examples").glob("torch_*.py")),
         ROOT / "tests" / "_torch_dist.py",
         *sorted((ROOT / "scripts").glob("torch_*.py"))]
     assert len(files) > 10
+    for name in ("custom_sweep_kernel", "many_chains_mesh",
+                 "sinusoidal_readme", "stochastic_sir",
+                 "stochastic_volatility"):
+        assert ROOT / "examples" / f"torch_{name}.py" in files
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
