@@ -114,6 +114,7 @@ from bayesssm_tpu_torch.ops.weights import (
     normalize_log_weights,
 )
 from bayesssm_tpu_torch.utils.signatures import adapt_fn, adapt_move_fn
+from bayesssm_tpu_torch.utils.timing import host_copy, span, spanned
 
 __all__ = ["particle_filter_core", "FilterResult", "FilterConfig",
            "obs_times_to_gaps"]
@@ -204,6 +205,7 @@ def obs_times_to_gaps(obs_times, num_obs: int) -> tuple:
 
 
 def _observations(y, device, dtype=torch.float32) -> torch.Tensor:
+    host_copy(y, device)
     if isinstance(y, torch.Tensor):
         if y.dtype == torch.bool or y.is_complex():
             raise ValueError("y must be numeric")
@@ -229,10 +231,12 @@ def _per_chain(v, c: int, dtype, dev) -> torch.Tensor:
     """A scalar or ``[C]`` value as a contiguous ``[C]`` tensor on ``dev``;
     a Python number becomes a fill, not a host-to-device copy."""
     if isinstance(v, torch.Tensor):
+        host_copy(v, dev)
         return v.to(device=dev, dtype=dtype).expand(c).contiguous()
     v = np.asarray(v)
     if v.ndim == 0:
         return torch.full((c,), float(v), dtype=dtype, device=dev)
+    host_copy(v, dev)
     return torch.as_tensor(v, dtype=dtype, device=dev).expand(c).contiguous()
 
 
@@ -243,6 +247,7 @@ def _weighted_sum(weights: torch.Tensor, particles: torch.Tensor):
     return torch.einsum("cn,cnd->cd", weights, particles)
 
 
+@spanned("filter")
 def particle_filter_core(
     key,
     y,
@@ -360,7 +365,9 @@ def particle_filter_core(
             raise ValueError(f"{who} must return one row per chain")
         return p
 
-    key_run, k_init = threefry.split(words).unbind(1)
+    with span("keys"):
+        key_run, k_init = threefry.split(words).unbind(1)
+        step_keys = threefry.split(key_run, (num_obs, 5))   # [C, T, 5, 2]
     p_idx = axis_index(particle_axis) if sharded else None
     if sharded:
         # Per-shard model streams; the resampling keys stay shard-identical.
@@ -429,154 +436,183 @@ def particle_filter_core(
             raise ValueError(f"{who} must return num_particles")
         return lw
 
-    step_keys = threefry.split(key_run, (num_obs, 5))   # [C, T, 5, 2]
     particles = particles0
     lnw_prev = log_uniform_w
     loglike = torch.zeros(c, dtype=dtype, device=dev)
     dead = torch.zeros(c, dtype=torch.bool, device=dev)
     states, esses, lls, p_hist, w_hist = [], [], [], [], []
     for t in range(num_obs):
-        y_i = ys[t, 0] if d_y == 1 else ys[t]
-        t_i = int(ot[t])
-        k_gap, k_aux, k_trans2, k_res, k_move = step_keys[:, t].unbind(1)
-        if sharded:
-            k_gap = threefry.fold_in(k_gap, p_idx)
-            k_trans2 = threefry.fold_in(k_trans2, p_idx)
-            k_move = threefry.fold_in(k_move, p_idx)
-
-        # --- propagate through observation-time gaps ---
-        if plain_gaps:
-            particles = canon(
-                trans(key=k_gap, particles=particles, t=t_i, **theta),
-                "transition_fn")
-        else:
-            gap_i = int(gaps[t])
-            for s in range(gap_i):
-                particles = canon(
-                    trans(key=threefry.fold_in(k_gap, s),
-                          particles=particles, t=t_i - gap_i + s + 1,
-                          **theta),
-                    "transition_fn")
-
-        if algorithm == "APF":
-            aux_lw = torch.where(
-                alive, log_weights(auxw, "aux_weight_fn", particles, y_i,
-                                   t_i).to(dtype),
-                -math.inf)
-            # Degenerate aux weights kill the chain: without this the
-            # fused path's -1e30 clamp cancels in lw - aux_anc and a dead
-            # proposal would give a huge spurious log-likelihood.
-            aux_max = torch.amax(aux_lw, dim=1)
-            if sharded:
-                aux_max = pmax(aux_max, particle_axis)
-            dead = dead | (aux_max < DEGENERATE_LOG_WEIGHT)
-            aux_base = aux_lw + lnw_prev if carry_weights else aux_lw
-            if fused_enabled:
-                p3 = particles if particles.ndim == 3 else particles[..., None]
-                aux_col = torch.clamp_min(aux_lw, _FUSED_FLOOR)[..., None]
-                p_ext = fused_step(torch.clamp_min(aux_base, _FUSED_FLOOR),
-                                   torch.cat([p3, aux_col], dim=-1), k_aux,
-                                   zero_thr, True)[0]
-                aux_anc = p_ext[..., -1]
-                particles = (p_ext[..., :-1] if particles.ndim == 3
-                             else p_ext[..., 0])
-            elif sharded:
-                aux_w, _, _ = normalize_log_weights(
-                    aux_base, axis_name=particle_axis)
-                anc = sharded_resample_indices(k_aux, aux_w, resample_fn,
-                                               particle_axis, n_f)
-                particles = sharded_gather(particles, anc, particle_axis)
-                aux_anc = sharded_gather(aux_lw, anc, particle_axis)
-            else:
-                aux_w, _, _ = normalize_log_weights(aux_base)
-                anc = resample_indices(k_aux, aux_w, method=resample_fn,
-                                       num_alive=n_f, validate=False)
-                particles = gather_particles(particles, anc)
-                aux_anc = torch.gather(aux_lw, 1, anc)
-            # Q2: a second transition after the auxiliary resample.
-            particles = canon(
-                trans(key=k_trans2, particles=particles, t=t_i, **theta),
-                "transition_fn")
-            lw = (log_weights(weight, "weight_fn", particles, y_i, t_i)
-                  - aux_anc)
-        else:
-            lw = log_weights(weight, "weight_fn", particles, y_i, t_i)
-        lw = torch.where(alive, lw.to(dtype), -math.inf)
-
-        # --- degenerate-weight detection ---
-        lw_max = torch.amax(lw, dim=1)
-        if sharded:
-            lw_max = pmax(lw_max, particle_axis)
-        dead = dead | (lw_max < DEGENERATE_LOG_WEIGHT)
-        if carry_weights:
-            # After an APF step the aux resample consumed the carried
-            # weights.
-            combined = lw + (log_uniform_w if algorithm == "APF"
-                             else lnw_prev)
-        else:
-            combined = lw
-
-        if fused_enabled:
-            p3 = particles if particles.ndim == 3 else particles[..., None]
-            thr_arg = thr if thr is not None else zero_thr
-            p3, weights, ess, lse = fused_step(
-                torch.clamp_min(combined, _FUSED_FLOOR), p3, k_res, thr_arg,
-                always_resample)
-            particles = p3 if particles.ndim == 3 else p3[..., 0]
-            incr = lse if carry_weights else lse - log_n
-            loglike = torch.where(dead, -math.inf, loglike + incr)
-            if always_resample:
-                ess_rec = n_f
-            else:
-                ess_rec = torch.where(ess < thr_arg, n_f, ess)
-        else:
-            weights, lse, mx = normalize_log_weights(
-                combined, axis_name=particle_axis)
-            incr = (mx + lse) if carry_weights else (mx + lse - log_n)
-            loglike = torch.where(dead, -math.inf, loglike + incr)
-            ess = effective_sample_size(weights, axis_name=particle_axis)
-            if resample_algorithm == "SIS" and not always_resample:
-                ess_rec = ess
-            else:
+        with span("day"):
+            with span("keys"):
+                y_i = ys[t, 0] if d_y == 1 else ys[t]
+                t_i = int(ot[t])
+                k_gap, k_aux, k_trans2, k_res, k_move = step_keys[
+                    :, t].unbind(1)
                 if sharded:
-                    idx = sharded_resample_indices(
-                        k_res, weights, resample_fn, particle_axis, n_f)
-                    resampled = sharded_gather(particles, idx, particle_axis)
+                    k_gap = threefry.fold_in(k_gap, p_idx)
+                    k_trans2 = threefry.fold_in(k_trans2, p_idx)
+                    k_move = threefry.fold_in(k_move, p_idx)
+
+            # --- propagate through observation-time gaps ---
+            with span("transition"):
+                if plain_gaps:
+                    particles = canon(
+                        trans(key=k_gap, particles=particles, t=t_i,
+                              **theta),
+                        "transition_fn")
                 else:
-                    idx = resample_indices(k_res, weights,
-                                           method=resample_fn,
-                                           num_alive=n_f, validate=False)
-                    resampled = gather_particles(particles, idx)
-                if always_resample:
-                    particles, weights, ess_rec = resampled, uniform_w, n_f
+                    gap_i = int(gaps[t])
+                    for s in range(gap_i):
+                        particles = canon(
+                            trans(key=threefry.fold_in(k_gap, s),
+                                  particles=particles,
+                                  t=t_i - gap_i + s + 1, **theta),
+                            "transition_fn")
+
+            if algorithm == "APF":
+                with span("weight_step"):
+                    aux_lw = torch.where(
+                        alive, log_weights(auxw, "aux_weight_fn", particles,
+                                           y_i, t_i).to(dtype),
+                        -math.inf)
+                    # Degenerate aux weights kill the chain: without this
+                    # the fused path's -1e30 clamp cancels in lw - aux_anc
+                    # and a dead proposal would give a huge spurious
+                    # log-likelihood.
+                    aux_max = torch.amax(aux_lw, dim=1)
+                    if sharded:
+                        aux_max = pmax(aux_max, particle_axis)
+                    dead = dead | (aux_max < DEGENERATE_LOG_WEIGHT)
+                    aux_base = aux_lw + lnw_prev if carry_weights else aux_lw
+                    if fused_enabled:
+                        p3 = (particles if particles.ndim == 3
+                              else particles[..., None])
+                        aux_col = torch.clamp_min(aux_lw,
+                                                  _FUSED_FLOOR)[..., None]
+                        p_ext = fused_step(
+                            torch.clamp_min(aux_base, _FUSED_FLOOR),
+                            torch.cat([p3, aux_col], dim=-1), k_aux,
+                            zero_thr, True)[0]
+                        aux_anc = p_ext[..., -1]
+                        particles = (p_ext[..., :-1] if particles.ndim == 3
+                                     else p_ext[..., 0])
+                    elif sharded:
+                        aux_w, _, _ = normalize_log_weights(
+                            aux_base, axis_name=particle_axis)
+                        anc = sharded_resample_indices(
+                            k_aux, aux_w, resample_fn, particle_axis, n_f)
+                        particles = sharded_gather(particles, anc,
+                                                   particle_axis)
+                        aux_anc = sharded_gather(aux_lw, anc, particle_axis)
+                    else:
+                        aux_w, _, _ = normalize_log_weights(aux_base)
+                        anc = resample_indices(k_aux, aux_w,
+                                               method=resample_fn,
+                                               num_alive=n_f, validate=False)
+                        particles = gather_particles(particles, anc)
+                        aux_anc = torch.gather(aux_lw, 1, anc)
+                # Q2: a second transition after the auxiliary resample.
+                with span("transition"):
+                    particles = canon(
+                        trans(key=k_trans2, particles=particles, t=t_i,
+                              **theta),
+                        "transition_fn")
+
+            with span("weight_step"):
+                lw = log_weights(weight, "weight_fn", particles, y_i, t_i)
+                if algorithm == "APF":
+                    lw = lw - aux_anc
+                lw = torch.where(alive, lw.to(dtype), -math.inf)
+
+                # --- degenerate-weight detection ---
+                lw_max = torch.amax(lw, dim=1)
+                if sharded:
+                    lw_max = pmax(lw_max, particle_axis)
+                dead = dead | (lw_max < DEGENERATE_LOG_WEIGHT)
+                if carry_weights:
+                    # After an APF step the aux resample consumed the
+                    # carried weights.
+                    combined = lw + (log_uniform_w if algorithm == "APF"
+                                     else lnw_prev)
                 else:
-                    do = ess < thr
-                    do_p = do.reshape((c,) + (1,) * (particles.ndim - 1))
-                    particles = torch.where(do_p, resampled, particles)
-                    weights = torch.where(do[:, None], uniform_w, weights)
-                    ess_rec = torch.where(do, n_f, ess)
+                    combined = lw
 
-        if algorithm == "RMPF":
-            particles = canon(
-                move(key=k_move, particles=particles, y=y_i, t=t_i, **theta),
-                "move_fn")
+                if fused_enabled:
+                    p3 = (particles if particles.ndim == 3
+                          else particles[..., None])
+                    thr_arg = thr if thr is not None else zero_thr
+                    p3, weights, ess, lse = fused_step(
+                        torch.clamp_min(combined, _FUSED_FLOOR), p3, k_res,
+                        thr_arg, always_resample)
+                    particles = p3 if particles.ndim == 3 else p3[..., 0]
+                    incr = lse if carry_weights else lse - log_n
+                    loglike = torch.where(dead, -math.inf, loglike + incr)
+                    if always_resample:
+                        ess_rec = n_f
+                    else:
+                        ess_rec = torch.where(ess < thr_arg, n_f, ess)
+                else:
+                    weights, lse, mx = normalize_log_weights(
+                        combined, axis_name=particle_axis)
+                    incr = ((mx + lse) if carry_weights
+                            else (mx + lse - log_n))
+                    loglike = torch.where(dead, -math.inf, loglike + incr)
+                    ess = effective_sample_size(weights,
+                                                axis_name=particle_axis)
+                    if resample_algorithm == "SIS" and not always_resample:
+                        ess_rec = ess
+                    else:
+                        if sharded:
+                            idx = sharded_resample_indices(
+                                k_res, weights, resample_fn, particle_axis,
+                                n_f)
+                            resampled = sharded_gather(particles, idx,
+                                                       particle_axis)
+                        else:
+                            idx = resample_indices(k_res, weights,
+                                                   method=resample_fn,
+                                                   num_alive=n_f,
+                                                   validate=False)
+                            resampled = gather_particles(particles, idx)
+                        if always_resample:
+                            particles, weights, ess_rec = (resampled,
+                                                           uniform_w, n_f)
+                        else:
+                            do = ess < thr
+                            do_p = do.reshape((c,)
+                                              + (1,) * (particles.ndim - 1))
+                            particles = torch.where(do_p, resampled,
+                                                    particles)
+                            weights = torch.where(do[:, None], uniform_w,
+                                                  weights)
+                            ess_rec = torch.where(do, n_f, ess)
 
-        # Dead chains: zero weights so the state estimate and ESS are 0.
-        weights = torch.where(dead[:, None], 0.0, weights)
-        ess_rec = torch.where(dead, 0.0, ess_rec)
-        if carry_weights:
-            pos_w = weights > 0
-            lnw_prev = torch.where(
-                pos_w, torch.log(torch.where(pos_w, weights, 1.0)),
-                -math.inf)
+            if algorithm == "RMPF":
+                with span("transition"):
+                    particles = canon(
+                        move(key=k_move, particles=particles, y=y_i, t=t_i,
+                             **theta),
+                        "move_fn")
 
-        state = _weighted_sum(weights, particles)
-        states.append(psum(state, particle_axis) if sharded else state)
-        esses.append(ess_rec)
-        lls.append(loglike)
-        if return_particles:
-            p_hist.append(particles)
-            w_hist.append(weights)
+            with span("estimate"):
+                # Dead chains: zero weights so the state estimate and ESS
+                # are 0.
+                weights = torch.where(dead[:, None], 0.0, weights)
+                ess_rec = torch.where(dead, 0.0, ess_rec)
+                if carry_weights:
+                    pos_w = weights > 0
+                    lnw_prev = torch.where(
+                        pos_w, torch.log(torch.where(pos_w, weights, 1.0)),
+                        -math.inf)
+
+                state = _weighted_sum(weights, particles)
+                states.append(psum(state, particle_axis) if sharded
+                              else state)
+                esses.append(ess_rec)
+                lls.append(loglike)
+                if return_particles:
+                    p_hist.append(particles)
+                    w_hist.append(weights)
 
     state0 = _weighted_sum(uniform_w, particles0)
     if sharded:

@@ -36,6 +36,7 @@ import torch
 
 from bayesssm_tpu_torch.ops import _build
 from bayesssm_tpu_torch.ops.rng import lane_keys, uniform_blocks
+from bayesssm_tpu_torch.utils.timing import host_sync
 
 __all__ = ["MAX_EVENTS", "EventTally", "gillespie_day", "gillespie_step",
            "gillespie_step_reference"]
@@ -109,6 +110,7 @@ def gillespie_day(keys, ctr, s, i, lam_n, gam, t_end: float = 1.0,
               else None)
     while True:
         go = active.any(dim=1, keepdim=True) & (steps < MAX_EVENTS)
+        host_sync(go)
         if not bool(go.any()):
             break
         u = uniform_blocks(keys, ctr, 2 * unroll)

@@ -28,6 +28,7 @@ from bayesssm_tpu_torch.ops.sweep_builder import (
     build_sweep_op,
     chain_params,
 )
+from bayesssm_tpu_torch.utils.timing import host_copy, span
 
 __all__ = ["lgss_bpf_sweep", "lgss_mv_bpf_sweep", "lgss_sweep_pf_impl"]
 
@@ -201,17 +202,20 @@ def lgss_sweep_pf_impl(c: float = 1.0, p0: float = 1.0,
         on_device = {}
 
         def pf(seed_words, theta, n=num_particles):
-            theta = torch.as_tensor(theta, dtype=torch.float32)
-            if theta.device not in on_device:
-                on_device[theta.device] = ys.to(theta.device)
-            a, sx, sy = (theta[:, j] for j in cols)
-            return lgss_bpf_sweep(
-                seed_words, on_device[theta.device], n, a, sx, sy, c=c,
-                p0=p0, max_particles=(max_particles
-                                      if max_particles is not None else n),
-                resample_fn=resample_fn,
-                resample_algorithm=resample_algorithm,
-            )
+            with span("filter"):
+                theta = torch.as_tensor(theta, dtype=torch.float32)
+                if theta.device not in on_device:
+                    host_copy(ys, theta.device)
+                    on_device[theta.device] = ys.to(theta.device)
+                a, sx, sy = (theta[:, j] for j in cols)
+                return lgss_bpf_sweep(
+                    seed_words, on_device[theta.device], n, a, sx, sy, c=c,
+                    p0=p0, max_particles=(max_particles
+                                          if max_particles is not None
+                                          else n),
+                    resample_fn=resample_fn,
+                    resample_algorithm=resample_algorithm,
+                )
 
         return pf
 

@@ -36,6 +36,7 @@ import warnings
 import torch
 
 from bayesssm_tpu_torch.ops import threefry
+from bayesssm_tpu_torch.utils.timing import host_sync
 
 __all__ = ["RESAMPLE_METHODS", "resample_indices",
            "metropolis_resample_indices", "gather_particles",
@@ -52,6 +53,7 @@ METROPOLIS_BLOCK_SLOTS = {"cuda": 1 << 24, "cpu": 1 << 18}
 
 def _validate_weights_eager(weights: torch.Tensor) -> None:
     """The reference's weight checks (non-negative, positive sum)."""
+    host_sync(weights)
     w = weights.detach().cpu().numpy()
     if (w < 0).any():
         raise ValueError("Weights must be non-negative")

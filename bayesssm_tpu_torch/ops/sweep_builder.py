@@ -71,6 +71,7 @@ import torch
 from bayesssm_tpu_torch.ops import _build, sweep_codegen
 from bayesssm_tpu_torch.ops.merge_select import select_cols_reference
 from bayesssm_tpu_torch.ops.rng import SweepRng, lane_keys
+from bayesssm_tpu_torch.utils.timing import host_copy, span
 
 __all__ = [
     "KernelModel",
@@ -210,6 +211,7 @@ class SweepOp:
             )
         dev = theta.device
         c = theta.shape[0]
+        host_copy(y, dev)
         ys = torch.as_tensor(y, dtype=torch.float32, device=dev)
         if self.d_y == 1:
             ys = ys.reshape(-1, 1)
@@ -223,14 +225,18 @@ class SweepOp:
                 f"obs_gaps has {len(self.gaps)} entries but y has "
                 f"{ys.shape[0]} observations"
             )
+        host_copy(seed_words, dev)
         words = torch.as_tensor(seed_words, dtype=torch.int64, device=dev)
         if words.shape != (c, 2):
             raise ValueError(
                 f"seed_words must be [C, 2] = [{c}, 2] "
                 f"(got {tuple(words.shape)})"
             )
+        host_copy(num_particles, dev)
         alive = torch.as_tensor(num_particles, dtype=torch.float32,
                                 device=dev).expand(c).contiguous()
+        if threshold is not None:
+            host_copy(threshold, dev)
         thr = (
             torch.as_tensor(threshold, dtype=torch.float32, device=dev)
             .expand(c).contiguous()
@@ -528,16 +534,18 @@ def build_sweep_pf_impl(
         on_device = {}
 
         def pf(seed_words, theta, n=num_particles):
-            theta = torch.as_tensor(theta, dtype=torch.float32)
-            if perm != list(range(len(perm))):
-                theta = theta[:, perm]
-            if theta.device not in on_device:
-                on_device[theta.device] = ys.to(theta.device)
-            return op(
-                seed_words, on_device[theta.device], theta, n,
-                max_particles=(max_particles if max_particles is not None
-                               else n),
-            )
+            with span("filter"):
+                theta = torch.as_tensor(theta, dtype=torch.float32)
+                if perm != list(range(len(perm))):
+                    theta = theta[:, perm]
+                if theta.device not in on_device:
+                    host_copy(ys, theta.device)
+                    on_device[theta.device] = ys.to(theta.device)
+                return op(
+                    seed_words, on_device[theta.device], theta, n,
+                    max_particles=(max_particles if max_particles is not None
+                                   else n),
+                )
 
         return pf
 

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from bayesssm_tpu_torch.ops.rng import MASK32, mul32
+from bayesssm_tpu_torch.utils.timing import host_sync
 
 __all__ = [
     "threefry2x32",
@@ -355,6 +356,7 @@ def _binomial_inversion(loop: LoopKeys, count, log1mp, active):
     geom_sum = torch.zeros(r * lanes, dtype=count.dtype, device=count.device)
     num_geom = torch.zeros_like(geom_sum)
     cnt, l1p = count.reshape(-1), log1mp.reshape(-1)
+    host_sync(count)
     idx = torch.nonzero((active & (count >= 0)).reshape(-1))[:, 0]
     lo = 0
     while idx.numel():
@@ -368,6 +370,7 @@ def _binomial_inversion(loop: LoopKeys, count, log1mp, active):
             g = g + geom[:, j]
         geom_sum[idx] = g
         num_geom[idx] = k
+        host_sync(idx)
         idx = idx[g <= c]
         lo = hi
     return (num_geom - 1).reshape(r, lanes)
@@ -427,6 +430,7 @@ def _btrs(loop: LoopKeys, count, prob, rows):
             acc = acc | upd
         k_out[rows] = ko
         accepted[rows] = acc
+        host_sync(rows)
         rows = rows[~acc.all(dim=1)]
         lo = hi
     return k_out
@@ -487,6 +491,7 @@ def binomial(keys: torch.Tensor, count, prob,
 
     samples = _binomial_inversion(loops[0], count_inv, torch.log1p(-q),
                                   use_inversion)
+    host_sync(samples)
     btrs_rows = torch.nonzero((~use_inversion).any(dim=1))[:, 0]
     if btrs_rows.numel():
         samples = torch.where(use_inversion, samples,

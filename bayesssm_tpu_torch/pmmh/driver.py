@@ -101,7 +101,14 @@ from bayesssm_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from bayesssm_tpu_torch.utils.signatures import check_params_match
-from bayesssm_tpu_torch.utils.timing import PhaseTimer
+from bayesssm_tpu_torch.utils.timing import (
+    PhaseTimer,
+    count,
+    host_copy,
+    host_sync,
+    span,
+    spanned,
+)
 
 __all__ = [
     "pmmh",
@@ -227,6 +234,7 @@ def chain_state_from_numpy(theta, prop_factors, target_n, seed_words,
             f"and seed_words [C, 2]; got {theta.shape}, {factors.shape}, "
             f"{n.shape}, {words.shape}"
         )
+    host_sync(torch.device(device), 4)
     return ChainState(
         theta=torch.as_tensor(theta, device=device),
         factors=torch.as_tensor(factors, device=device),
@@ -357,6 +365,7 @@ class SampleResult:
     accepted: np.ndarray           # [C] int64 accepted MH steps
 
 
+@spanned("sample_chains")
 def sample_chains(pf, state: ChainState, m: int, burn_in: int, prior_fns,
                   transforms, jacobian_convention: str = "consistent",
                   return_latent_state_est: bool = False) -> SampleResult:
@@ -396,19 +405,22 @@ def sample_chains(pf, state: ChainState, m: int, burn_in: int, prior_fns,
 
     record(0)
     for s in range(1, m):
-        w = step_words(state.words, state.step + s, 3 + 2 * p)
-        u = _uniform(w[:, 2:2 + 2 * p])
-        eps = box_muller(u[:, 0::2], u[:, 1::2])
-        theta, ll, se, accept = mh_step(
-            pf, theta, ll, state.factors, state.n, eps,
-            _uniform(w[:, 2 + 2 * p]), w[:, :2], prior_fns, transforms,
-            jacobian_convention, se=se,
-        )
-        accepts += accept
-        record(s)
+        with span("mh_step"):
+            w = step_words(state.words, state.step + s, 3 + 2 * p)
+            u = _uniform(w[:, 2:2 + 2 * p])
+            eps = box_muller(u[:, 0::2], u[:, 1::2])
+            theta, ll, se, accept = mh_step(
+                pf, theta, ll, state.factors, state.n, eps,
+                _uniform(w[:, 2 + 2 * p]), w[:, :2], prior_fns, transforms,
+                jacobian_convention, se=se,
+            )
+            accepts += accept
+            record(s)
+    count("mh_steps", m - 1)
 
     new_state = dataclasses.replace(state, theta=theta, ll=ll, se=se,
                                     step=state.step + m - 1)
+    host_sync(dev, 2 + (latent is not None))
     accepted = accepts.cpu().numpy()
     return SampleResult(
         samples=samples.cpu().numpy(),
@@ -461,6 +473,7 @@ def _sample_in_chunks(pf, state, m, keep_from, prior_fns, transforms,
     samples = list(samples or [])
     latents = list(latents or [])
     if done == 1 and keep_from == 0:
+        host_sync(state.theta, 1 + return_latent_state_est)
         samples.append(state.theta.cpu().numpy()[:, None])
         if return_latent_state_est:
             latents.append(state.se.cpu().numpy()[:, None])
@@ -477,26 +490,27 @@ def _sample_in_chunks(pf, state, m, keep_from, prior_fns, transforms,
         # is the state it starts from, recorded already.
         first_keep = max(1, keep_from - done + 1)
         local_burn = min(first_keep, length)
-        res = sample_chains(pf, state, length + 1, local_burn, prior_fns,
-                            transforms, jacobian_convention,
-                            return_latent_state_est)
-        drop = first_keep - local_burn
-        samples.append(res.samples[:, drop:])
-        if return_latent_state_est:
-            latents.append(res.latent[:, drop:])
-        state = res.state
-        accepted += res.accepted
-        done += length
-        if verbose:
-            every = gather or (lambda x: x)
-            chunk_acc = float(every(res.accepted).mean()) / length
-            cum_acc = float(every(accepted).mean()) / max(done - 1, 1)
-            print(
-                f"Sampling: {done}/{m} steps — acceptance "
-                f"chunk {chunk_acc:.3f}, cumulative {cum_acc:.3f}"
-            )
-        if on_chunk is not None:
-            on_chunk(state, done, samples, latents, accepted)
+        with span("chunk"):
+            res = sample_chains(pf, state, length + 1, local_burn, prior_fns,
+                                transforms, jacobian_convention,
+                                return_latent_state_est)
+            drop = first_keep - local_burn
+            samples.append(res.samples[:, drop:])
+            if return_latent_state_est:
+                latents.append(res.latent[:, drop:])
+            state = res.state
+            accepted += res.accepted
+            done += length
+            if verbose:
+                every = gather or (lambda x: x)
+                chunk_acc = float(every(res.accepted).mean()) / length
+                cum_acc = float(every(accepted).mean()) / max(done - 1, 1)
+                print(
+                    f"Sampling: {done}/{m} steps — acceptance "
+                    f"chunk {chunk_acc:.3f}, cumulative {cum_acc:.3f}"
+                )
+            if on_chunk is not None:
+                on_chunk(state, done, samples, latents, accepted)
     p = state.theta.shape[1]
     post = (np.concatenate(samples, axis=1) if samples
             else np.zeros((state.theta.shape[0], 0, p), np.float32))
@@ -529,6 +543,7 @@ def _slowest_rank(timings: dict, mesh, dev) -> dict:
     from bayesssm_tpu_torch.parallel.collectives import pmax
     from bayesssm_tpu_torch.parallel.mesh import use_mesh
 
+    host_sync(dev, 2)           # the copies to the device and back
     secs = torch.tensor(list(timings.values()), dtype=torch.float64,
                         device=dev)
     with use_mesh(mesh):
@@ -549,6 +564,7 @@ def _resolve_device(device) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+@spanned("pmmh")
 def pmmh(
     pf_wrapper,
     y,
@@ -632,8 +648,11 @@ def pmmh(
         raise ValueError("num_chains must be an integer >= 1")
     if not isinstance(log_priors, dict) or len(log_priors) == 0:
         raise ValueError("log_priors must be a non-empty dict of callables")
-    y_host = (y.detach().cpu().numpy() if isinstance(y, torch.Tensor)
-              else np.asarray(y))
+    if isinstance(y, torch.Tensor):
+        host_sync(y)
+        y_host = y.detach().cpu().numpy()
+    else:
+        y_host = np.asarray(y)
     if not np.issubdtype(y_host.dtype, np.number) or np.isnan(y_host).any():
         raise ValueError("y must be numeric with no missing values")
 
@@ -703,6 +722,7 @@ def pmmh(
         from bayesssm_tpu_torch.parallel.collectives import all_gather
         from bayesssm_tpu_torch.parallel.mesh import use_mesh
 
+        host_sync(dev, 2)       # the copies to the device and back
         local = torch.as_tensor(np.ascontiguousarray(x), device=dev)
         with use_mesh(mesh):
             return all_gather(local, chain_axis).cpu().numpy()
@@ -729,6 +749,7 @@ def pmmh(
             )
 
     root_key, seed_out = _root_key(seed)
+    host_copy(root_key, dev)
     chain_keys = threefry.fold_in(
         root_key.to(dev), torch.arange(lo, lo + c_local, device=dev))
     model_fns = (
@@ -764,6 +785,7 @@ def pmmh(
                 carry_weights=carry_weights, pf_impl=pf_factory,
             )
         # The one host sync between the phases, over every chain.
+        host_sync(dev, 3)
         theta_mean = gather(tuned["pilot_theta_mean"].cpu().numpy()).astype(
             np.float64)
         theta_cov = gather(tuned["pilot_theta_cov"].cpu().numpy()).astype(
@@ -794,9 +816,12 @@ def pmmh(
     )
     if resume_state is None:
         mh_keys, k0 = threefry.split(chain_keys).unbind(1)
-        state = chain_state_from_pilot(theta_mean[block], theta_cov[block],
-                                       target_n[block], transforms,
-                                       mh_keys.cpu().numpy(), dev)
+        with span("proposal_factors"):
+            host_sync(mh_keys)
+            state = chain_state_from_pilot(theta_mean[block],
+                                           theta_cov[block], target_n[block],
+                                           transforms, mh_keys.cpu().numpy(),
+                                           dev)
         ll0, se0 = pf(k0, state.theta, state.n)
         state = dataclasses.replace(
             state, ll=ll0, se=se0 if return_latent_state_est else None)
@@ -844,6 +869,7 @@ def pmmh(
         def on_chunk(st, done, samples, latents, accepted):
             # Every rank gathers every chain and writes the same snapshot.
             def full(x):
+                host_sync(x)
                 return gather(x.cpu().numpy())
 
             save_checkpoint(

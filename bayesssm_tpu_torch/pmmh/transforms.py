@@ -17,6 +17,8 @@ import warnings
 
 import torch
 
+from bayesssm_tpu_torch.utils.timing import host_sync
+
 __all__ = [
     "TRANSFORMS",
     "resolve_transforms",
@@ -62,6 +64,9 @@ def resolve_transforms(param_transform, param_names) -> tuple:
 
 
 def _codes(transforms, like: torch.Tensor) -> torch.Tensor:
+    # A copy from host memory: on a CUDA device the host waits for the
+    # stream's queued work before it.
+    host_sync(like)
     return torch.tensor([_CODE[t] for t in transforms], dtype=torch.int32,
                         device=like.device)
 

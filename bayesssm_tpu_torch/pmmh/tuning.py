@@ -34,6 +34,12 @@ from bayesssm_tpu_torch.pmmh.transforms import (
     log_jacobian,
     transform_params,
 )
+from bayesssm_tpu_torch.utils.timing import (
+    host_copy,
+    host_sync,
+    span,
+    spanned,
+)
 
 __all__ = ["TuneControl", "default_tune_control", "run_pilot_chain",
            "pilot_run", "_make_pf_loglike"]
@@ -144,6 +150,7 @@ def _make_pf_loglike(
         theta_vec = torch.as_tensor(theta_vec, dtype=torch.float32)
         dev = theta_vec.device
         if dev not in on_device:
+            host_copy(y, dev)
             on_device[dev] = torch.as_tensor(y, dtype=torch.float32,
                                              device=dev)
         theta = {name: theta_vec[:, j] for j, name in enumerate(names)}
@@ -192,11 +199,13 @@ def _propose_until_valid(key, z, proposal_sd, transforms, prior_fns,
         valid = torch.isfinite(sum_log_priors(thp, prior_fns))
         theta = torch.where((pending & valid)[:, None], thp, theta)
         pending = pending & ~valid
+        host_sync(pending)
         if not bool(pending.any()):
             break
     return theta
 
 
+@spanned("pilot")
 def run_pilot_chain(
     key,
     y,
@@ -225,6 +234,7 @@ def run_pilot_chain(
     """
     key = threefry.as_key_words(key)
     dev = key.device
+    host_copy(init_theta, dev)
     init_theta = torch.as_tensor(init_theta, dtype=torch.float32, device=dev)
     proposal_sd = float(np.float32(control.pilot_proposal_sd))
     # The pilot filter's lanes are padded to a multiple of 128; masked
@@ -250,27 +260,29 @@ def run_pilot_chain(
     thetas, lls = [theta], [ll]
     accepted = torch.zeros(key.shape[0], dtype=torch.float32, device=dev)
     for _ in range(control.pilot_m - 1):
-        key, k_prop, k_pf, k_acc = threefry.split(key, 4).unbind(1)
-        z = transform_params(theta, transforms)
-        theta_prop = _propose_until_valid(k_prop, z, proposal_sd, transforms,
-                                          prior_fns, theta)
-        ll_prop, _ = pf(k_pf, theta_prop)
-        log_ratio = (
-            sum_log_priors(theta_prop, prior_fns)
-            + ll_prop
-            + log_jacobian(theta_prop, transforms, jacobian_convention)
-        ) - (
-            sum_log_priors(theta, prior_fns)
-            + ll
-            + log_jacobian(theta, transforms, jacobian_convention)
-        )
-        log_ratio = torch.where(torch.isnan(log_ratio), -math.inf, log_ratio)
-        accept = torch.log(threefry.uniform(k_acc)) < log_ratio
-        theta = torch.where(accept[:, None], theta_prop, theta)
-        ll = torch.where(accept, ll_prop, ll)
-        thetas.append(theta)
-        lls.append(ll)
-        accepted = accepted + accept.to(torch.float32)
+        with span("step"):
+            key, k_prop, k_pf, k_acc = threefry.split(key, 4).unbind(1)
+            z = transform_params(theta, transforms)
+            theta_prop = _propose_until_valid(k_prop, z, proposal_sd,
+                                              transforms, prior_fns, theta)
+            ll_prop, _ = pf(k_pf, theta_prop)
+            log_ratio = (
+                sum_log_priors(theta_prop, prior_fns)
+                + ll_prop
+                + log_jacobian(theta_prop, transforms, jacobian_convention)
+            ) - (
+                sum_log_priors(theta, prior_fns)
+                + ll
+                + log_jacobian(theta, transforms, jacobian_convention)
+            )
+            log_ratio = torch.where(torch.isnan(log_ratio), -math.inf,
+                                    log_ratio)
+            accept = torch.log(threefry.uniform(k_acc)) < log_ratio
+            theta = torch.where(accept[:, None], theta_prop, theta)
+            ll = torch.where(accept, ll_prop, ll)
+            thetas.append(theta)
+            lls.append(ll)
+            accepted = accepted + accept.to(torch.float32)
     theta_chain = torch.stack(thetas, dim=1)
     loglike_chain = torch.stack(lls, dim=1)
 
@@ -281,8 +293,10 @@ def run_pilot_chain(
     theta_cov = torch.einsum("cmp,cmq->cpq", centered, centered) / (
         post.shape[1] - 1)
 
-    target_n, var_est = pilot_run(key, theta_mean, pf, control,
-                                  max_rows=max(1, PILOT_LANES_PER_CALL // lanes))
+    with span("variance_run"):
+        target_n, var_est = pilot_run(
+            key, theta_mean, pf, control,
+            max_rows=max(1, PILOT_LANES_PER_CALL // lanes))
 
     return {
         "pilot_theta_mean": theta_mean,

@@ -34,6 +34,8 @@ import pathlib
 import numpy as np
 import torch
 
+from bayesssm_tpu_torch.utils.timing import host_sync
+
 __all__ = ["save_checkpoint", "load_checkpoint", "FORMAT_VERSION"]
 
 FORMAT_VERSION = 2
@@ -50,6 +52,7 @@ def _process_index() -> int:
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
+        host_sync(x)
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
