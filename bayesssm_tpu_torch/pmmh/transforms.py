@@ -9,6 +9,12 @@ Jacobian conventions (quirk Q1): ``"consistent"`` uses +log|d theta/d z|
 for every transform (log -> log(theta); logit -> log(theta (1 - theta)));
 ``"reference"`` reproduces the reference package's mixed convention, whose
 logit term is -log(theta (1 - theta)).
+
+The per-parameter masks (``log``, ``logit``) are constants of a call: they
+are copied to a device once per ``(transforms, device)``, the first time
+that pair is seen, and reused from then on, so a step copies nothing from
+the host and never waits for the device's queue. ``transform_consts.build``
+and ``transform_consts.hit`` count the two cases.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import warnings
 
 import torch
 
-from bayesssm_tpu_torch.utils.timing import host_sync
+from bayesssm_tpu_torch.utils.timing import count, host_sync
 
 __all__ = [
     "TRANSFORMS",
@@ -29,6 +35,8 @@ __all__ = [
 
 TRANSFORMS = ("identity", "log", "logit")
 _CODE = {"identity": 0, "log": 1, "logit": 2}
+# (transforms, device) -> (is_log, is_logit), two [P] bool tensors there.
+_MASKS: dict = {}
 
 
 def resolve_transforms(param_transform, param_names) -> tuple:
@@ -63,28 +71,39 @@ def resolve_transforms(param_transform, param_names) -> tuple:
     return tuple(out)
 
 
-def _codes(transforms, like: torch.Tensor) -> torch.Tensor:
+def _masks(transforms, like: torch.Tensor) -> tuple:
+    """The ``log`` and ``logit`` masks of ``transforms`` on ``like``'s
+    device, built on the pair's first use (module docstring)."""
+    key = (tuple(transforms), like.device)
+    masks = _MASKS.get(key)
+    if masks is not None:
+        count("transform_consts.hit")
+        return masks
+    code = [_CODE[t] for t in key[0]]
     # A copy from host memory: on a CUDA device the host waits for the
-    # stream's queued work before it.
+    # stream's queued work before it, once per key.
     host_sync(like)
-    return torch.tensor([_CODE[t] for t in transforms], dtype=torch.int32,
-                        device=like.device)
+    masks = _MASKS[key] = torch.tensor(
+        [[c == 1 for c in code], [c == 2 for c in code]], dtype=torch.bool,
+        device=like.device).unbind(0)
+    count("transform_consts.build")
+    return masks
 
 
 def transform_params(theta: torch.Tensor, transforms) -> torch.Tensor:
     """theta -> z on the proposal scale."""
-    code = _codes(transforms, theta)
+    is_log, is_logit = _masks(transforms, theta)
     safe = torch.clamp(theta, min=1e-300)
     logit = torch.log(safe) - torch.log1p(-torch.clamp(theta, max=1 - 1e-15))
-    out = torch.where(code == 1, torch.log(safe), theta)
-    return torch.where(code == 2, logit, out)
+    out = torch.where(is_log, torch.log(safe), theta)
+    return torch.where(is_logit, logit, out)
 
 
 def back_transform_params(z: torch.Tensor, transforms) -> torch.Tensor:
     """z -> theta on the model scale."""
-    code = _codes(transforms, z)
-    out = torch.where(code == 1, torch.exp(z), z)
-    return torch.where(code == 2, 1.0 / (1.0 + torch.exp(-z)), out)
+    is_log, is_logit = _masks(transforms, z)
+    out = torch.where(is_log, torch.exp(z), z)
+    return torch.where(is_logit, 1.0 / (1.0 + torch.exp(-z)), out)
 
 
 def log_jacobian(theta: torch.Tensor, transforms,
@@ -92,7 +111,7 @@ def log_jacobian(theta: torch.Tensor, transforms,
     """Sum over the last axis of the per-parameter log-Jacobian terms."""
     if convention not in ("consistent", "reference"):
         raise ValueError("convention must be 'consistent' or 'reference'")
-    code = _codes(transforms, theta)
+    is_log, is_logit = _masks(transforms, theta)
     safe = torch.clamp(theta, min=1e-300)
     log_term = torch.log(safe)
     logit_term = torch.log(safe) + torch.log1p(
@@ -101,7 +120,7 @@ def log_jacobian(theta: torch.Tensor, transforms,
     if convention == "reference":
         logit_term = -logit_term
     per_param = torch.where(
-        code == 1, log_term,
-        torch.where(code == 2, logit_term, torch.zeros_like(theta)),
+        is_log, log_term,
+        torch.where(is_logit, logit_term, torch.zeros_like(theta)),
     )
     return per_param.sum(dim=-1)

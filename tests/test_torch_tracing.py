@@ -219,7 +219,9 @@ def test_with_no_profiler_no_record_function_is_opened(monkeypatch):
     assert opened[0] == "bssm.filter" and len(opened) == 2 + 5 * len(y)
 
 
-def test_sample_chains_counts_its_steps_and_the_host_waits_of_a_cpu_run():
+def test_sample_chains_counts_its_steps_and_the_host_waits_of_a_cpu_run(
+        monkeypatch):
+    from bayesssm_tpu_torch.pmmh import transforms
     from bayesssm_tpu_torch.pmmh.driver import init_chain_state, sample_chains
     from bayesssm_tpu_torch.pmmh.tuning import _make_pf_loglike
 
@@ -230,11 +232,14 @@ def test_sample_chains_counts_its_steps_and_the_host_waits_of_a_cpu_run():
     state = init_chain_state(np.float32([0.5, 0.5, 0.5]),
                              np.tile(np.eye(3, dtype=np.float32) * 0.1,
                                      (3, 1, 1)), 16, 11, "cpu")
+    monkeypatch.setattr(transforms, "_MASKS", {})
     sample_chains(pf, state, 5, 1, [log_priors[q] for q in names],
                   ("identity",) * 3)
     (call,) = timing.recent_calls()
     assert call["root"] == "sample_chains"
-    assert call["counters"] == {"mh_steps": 4}
+    # Four transform calls a step: the masks are built once, then reused.
+    assert call["counters"] == {"mh_steps": 4, "transform_consts.build": 1,
+                                "transform_consts.hit": 15}
     assert call["spans"]["sample_chains/mh_step"]["count"] == 4
     assert call["spans"]["sample_chains/filter"]["count"] == 1
     assert call["spans"]["sample_chains/mh_step/filter"]["count"] == 4
