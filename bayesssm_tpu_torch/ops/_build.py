@@ -28,7 +28,11 @@ contracted: PyTorch evaluates each elementwise op with its own rounding,
 and every kernel is held to its plain version bit for bit.
 
 Every launcher adds one to ``launches[entry]`` when it launches its
-kernel, and nowhere else.
+kernel, and nowhere else. Counters of ``utils/timing.py``: a sweep launch
+adds ``C * N * T`` to ``sweep.lane_days``; a generated unit's first use in
+a process, inside the span ``load_generated``, counts ``generated.build``
+when ``nvcc`` ran and ``generated.load`` when its library was already in
+``build/``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ import subprocess
 import time
 
 import torch
+
+from bayesssm_tpu_torch.utils.timing import count, span
 
 __all__ = ["NVCC_FLAGS", "launches", "reset_launches", "library_loaded",
            "load_library", "build_info", "occupancy", "generated_entry",
@@ -245,19 +251,22 @@ def _build_unit(text: str, tag: str):
     ``nvcc`` raises with its log."""
     if tag in _generated:
         return _generated[tag]
-    out = _BUILD_DIR / f"gen_{tag}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src = _BUILD_DIR / f"gen_{tag}.cu"
-        tmp = src.with_suffix(f".{os.getpid()}.tmp")
-        tmp.write_text(text)
-        os.replace(tmp, src)
-        log = _compile([src], out, extra=("-I", str(_CSRC)))
-    lib = ctypes.CDLL(str(out))
-    build_info.setdefault("generated", {})[tag] = dict(
-        path=str(out), seconds=time.perf_counter() - t0, ptxas=log)
+    with span("load_generated"):
+        out = _BUILD_DIR / f"gen_{tag}.so"
+        t0 = time.perf_counter()
+        log = ""
+        built = not out.exists()
+        if built:
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            src = _BUILD_DIR / f"gen_{tag}.cu"
+            tmp = src.with_suffix(f".{os.getpid()}.tmp")
+            tmp.write_text(text)
+            os.replace(tmp, src)
+            log = _compile([src], out, extra=("-I", str(_CSRC)))
+        count("generated.build" if built else "generated.load")
+        lib = ctypes.CDLL(str(out))
+        build_info.setdefault("generated", {})[tag] = dict(
+            path=str(out), seconds=time.perf_counter() - t0, ptxas=log)
     _generated[tag] = lib
     return lib
 
@@ -360,6 +369,7 @@ def launch_sweep(kernel, words, ys, theta, alive, thr, n, *, d, mode,
     )
     _raise_on(rc, entry)
     launches[key] += 1
+    count("sweep.lane_days", c * n * t)
     return ll, est
 
 

@@ -58,6 +58,11 @@ tensors launch the kernel. Callbacks the tracer cannot take (indexing,
 reductions, Python control flow on values, the counter-threading ``rng``
 methods) raise ``ValueError`` naming the operation on CUDA tensors; the
 plain sweep on CPU tensors runs them as before.
+
+A call opens the spans ``prepare`` (its checks and copies) and, on a card,
+``launch`` (``_build.launch_sweep``); the first CUDA call of an op with no
+hand-written functor traces and emits its functor inside ``codegen``
+(``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -249,18 +254,20 @@ class SweepOp:
 
     def __call__(self, seed_words, y, theta, num_particles,
                  max_particles=None, threshold=None):
-        args = self._prepare(seed_words, y, theta, num_particles,
-                             max_particles, threshold)
+        with span("prepare"):
+            args = self._prepare(seed_words, y, theta, num_particles,
+                                 max_particles, threshold)
         if args[2].device.type == "cpu":
             ll, est = self._reference(*args)
         else:
-            ll, est = _build.launch_sweep(
-                self.kernel or self.generated_kernel(), *args, d=self.d,
-                mode=_MODE[self.mode],
-                systematic=self.method == "systematic",
-                algorithm=_ALGORITHM[self.algorithm],
-                gap_table=self._gap_table(args[2].device),
-            )
+            kernel = self.kernel or self.generated_kernel()
+            with span("launch"):
+                ll, est = _build.launch_sweep(
+                    kernel, *args, d=self.d, mode=_MODE[self.mode],
+                    systematic=self.method == "systematic",
+                    algorithm=_ALGORITHM[self.algorithm],
+                    gap_table=self._gap_table(args[2].device),
+                )
         return ll, self._shape_est(est)
 
     def trace(self) -> sweep_codegen.TracedModel:
@@ -275,7 +282,8 @@ class SweepOp:
         """The functor generated from the callbacks, traced once per op;
         ``nvcc`` runs at its first launch."""
         if self._generated is None:
-            source = sweep_codegen.emit_functor(self.trace())
+            with span("codegen"):
+                source = sweep_codegen.emit_functor(self.trace())
             self._generated = KernelModel(_build.generated_entry(source),
                                           (), source)
         return self._generated

@@ -11,13 +11,15 @@ host wait on the device warns, and each warning is traced to the
 package's line that issued it. Explicit ``torch.cuda.synchronize`` calls
 do not warn and are counted by a wrapper. The call's ``host_sync``
 counter (``recent_calls()``) should equal warnings plus synchronizes.
-Prints one JSON line a cell, the sites with their counts first.
+Prints one JSON line a cell, the sites with their counts first, and the
+call's ``sweep.lane_days`` (chains x lanes x days its K1 launches cover).
 
 ``views``: for each sampling cell, ``--calls`` calls of its shape timed
 both on the benchmark's host clock (``drivers/sample_loop.py``: the
 filter's wrapper and the MH step outside it) and by the program's spans
 (``filter`` total and ``mh_step`` self time): the benchmark's means beside
-the spans' median of per-call means and their mean over all calls.
+the spans' median of per-call means and their mean over all calls; on the
+sweep cells also the sweep op's ``prepare`` and ``launch`` spans.
 
 ``overhead``: for each sampling cell, rounds of ``--calls`` calls with the
 spans on and with their enter and exit made empty, in turns in one
@@ -45,7 +47,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-CELLS = ("sir.sweep", "sir.engine", "sinusoidal.engine", "sir.pmmh")
+CELLS = ("sir.sweep", "sir.engine", "sinusoidal.engine", "sir.pmmh",
+         "sv.sweep")
 PACKAGES = ("bayesssm_tpu_torch", "benchmark")
 
 
@@ -117,6 +120,7 @@ def syncs(name: str, seed: int) -> dict:
     return dict(cell=name, sites=dict(sites.most_common()), seen=seen,
                 counted=counters.get("host_sync", 0),
                 mh_steps=counters.get("mh_steps", 0),
+                lane_days=counters.get("sweep.lane_days", 0),
                 match=seen == counters.get("host_sync", 0),
                 call_s=round(wall, 3))
 
@@ -148,11 +152,15 @@ def views(name: str, seed: int, calls: int) -> dict:
             median_ms=statistics.median(a[i] / a[0] for a in per) * 1e-6,
             mean_ms=sum(a[i] for a in per) / sum(a[0] for a in per) * 1e-6)
 
-    return dict(cell=name, calls=calls,
-                filter_host_ms=h["filter_s"] / h["filter_calls"] * 1e3,
-                filter_span=view("filter", 1),
-                mh_host_ms=h["outside_s"] / h["steps"] * 1e3,
-                mh_step_self=view("mh_step", 2))
+    out = dict(cell=name, calls=calls,
+               filter_host_ms=h["filter_s"] / h["filter_calls"] * 1e3,
+               filter_span=view("filter", 1),
+               mh_host_ms=h["outside_s"] / h["steps"] * 1e3,
+               mh_step_self=view("mh_step", 2))
+    if cell.workload["filter"] == "sweep":
+        out.update(prepare_span=view("prepare", 1),
+                   launch_span=view("launch", 1))
+    return out
 
 
 def overhead(name: str, seed: int, calls: int, rounds: int = 8) -> dict:

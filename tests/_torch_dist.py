@@ -457,9 +457,10 @@ def checkpoint_pmmh(mesh_shape=(2, 1), m=80, **kw):
 
 def checkpoint_session(ck_dir):
     """Uninterrupted with snapshots, interrupted at m = 30 and resumed, on
-    a chains mesh; each rank lists the directory after each run, after a
-    barrier so that no rank is still writing. The m = 30 snapshot is
-    copied to ``part30.npz`` before the resume overwrites it."""
+    a chains mesh; each rank lists the directory after each run, between
+    two barriers so that no rank is still writing or writes again before
+    every rank has listed. The m = 30 snapshot is copied to ``part30.npz``
+    before the resume overwrites it."""
     import os
     import shutil
 
@@ -467,7 +468,9 @@ def checkpoint_session(ck_dir):
 
     def listing():
         dist.barrier()
-        return sorted(os.listdir(ck_dir))
+        names = sorted(os.listdir(ck_dir))
+        dist.barrier()     # no rank writes again before every rank listed
+        return names
 
     whole = os.path.join(ck_dir, "whole.npz")
     part = os.path.join(ck_dir, "part.npz")
