@@ -50,6 +50,20 @@ uniforms and filter words. A step's words depend only on the chain words
 and the step's index, so how the steps are cut into chunks changes no
 sample.
 
+**CUDA graphs.** On a CUDA device, :func:`sample_chains` runs the MH
+step's own work (words, draws, proposal, priors, Jacobians, ratio,
+decision and update; ~225 small kernels) as two CUDA graphs on either
+side of the filter, which stays an eager call: a filter is any callable,
+and the benchmark's and users' filters run Python on every call, time it,
+or keep what they are given. Each step the filter gets fresh copies of
+the proposal and its words. The graphs are captured once per key
+(:func:`_graph_key`: device, shapes, the prior callables, transforms and
+Jacobian convention), on the key's second step in the process, and kept
+across calls (:class:`_StepGraphs`); a key whose capture raises runs
+eagerly from then on. Calls with state estimates, with fewer than 2 MH
+steps or on the CPU run eagerly. Replayed kernels are the eager ones, so
+the samples are the same bits either way.
+
 **Meshes.** ``pmmh(mesh=...)`` runs on every rank of a ``(chains,
 particles)`` mesh (``parallel/mesh.py``), each rank on its own block of
 chains, as the JAX driver runs its phases inside ``shard_map``: rank
@@ -68,9 +82,11 @@ rank returns the same full ``PMMHOutput``.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import pathlib
+import threading
 import warnings
 from typing import Optional
 
@@ -118,6 +134,8 @@ __all__ = [
     "init_chain_state",
     "chain_words",
     "step_words",
+    "mh_propose",
+    "mh_accept",
     "mh_step",
     "sample_chains",
     "SampleResult",
@@ -302,9 +320,15 @@ def init_chain_state(theta0, prop_factors, target_n, seed: int,
                                   device)
 
 
-def step_words(words: torch.Tensor, step: int, count: int) -> torch.Tensor:
-    """``[C, count]`` stream words of MH step ``step`` (module docstring)."""
-    s_mix = mul32(torch.tensor(step, dtype=torch.int64), _STEP_MUL).item()
+def step_words(words: torch.Tensor, step, count: int) -> torch.Tensor:
+    """``[C, count]`` stream words of MH step ``step`` (module docstring):
+    an int, or a 0-d int64 tensor on ``words``' device (a CUDA graph's step
+    counter), which gives the same bits and copies nothing from the
+    host."""
+    if isinstance(step, torch.Tensor):
+        s_mix = mul32(step, _STEP_MUL)
+    else:
+        s_mix = mul32(torch.tensor(step, dtype=torch.int64), _STEP_MUL).item()
     k = hash32(words[:, 0] ^ hash32((words[:, 1] + s_mix) & MASK32))
     j = torch.arange(1, count + 1, dtype=torch.int64, device=words.device)
     return hash32(k[:, None] ^ hash32(mul32(j, _GOLDEN))[None, :])
@@ -314,21 +338,31 @@ def _uniform(word: torch.Tensor) -> torch.Tensor:
     return (word >> 8).to(torch.float32) * _INV24
 
 
-def mh_step(pf, theta, ll, factor, n_chain, eps, u_acc, seed_words,
-            prior_fns, transforms, jacobian_convention="consistent",
-            se=None):
-    """One random-walk MH step for every chain (``driver.py:484-518``).
+def _draws(words: torch.Tensor, step, p: int):
+    """``(eps [C, P], u_acc [C], filter words [C, 2])`` of MH step
+    ``step`` (module docstring; ``step`` as :func:`step_words` takes
+    it)."""
+    w = step_words(words, step, 3 + 2 * p)
+    u = _uniform(w[:, 2:2 + 2 * p])
+    return (box_muller(u[:, 0::2], u[:, 1::2]), _uniform(w[:, 2 + 2 * p]),
+            w[:, :2])
 
-    ``eps [C, P]`` standard normals, ``u_acc [C]`` uniforms and
-    ``seed_words [C, 2]`` for the filter are given. A proposal outside the
-    prior support, or a NaN ratio, is rejected. ``se`` (state estimates)
-    is carried only when given. Returns ``(theta, ll, se, accept)``.
-    """
+
+def mh_propose(theta, factor, eps, prior_fns, transforms):
+    """The first half of :func:`mh_step`: ``(theta_prop [C, P], lp_prop
+    [C])``, the random-walk proposal on the transformed scale and its log
+    prior."""
     z = transform_params(theta, transforms)
     zp = z + (factor * eps[:, None, :]).sum(dim=-1)
     theta_prop = back_transform_params(zp, transforms)
-    lp_prop = sum_log_priors(theta_prop, prior_fns)
-    ll_prop, se_prop = pf(seed_words, theta_prop, n_chain)
+    return theta_prop, sum_log_priors(theta_prop, prior_fns)
+
+
+def mh_accept(theta, ll, theta_prop, lp_prop, ll_prop, u_acc, prior_fns,
+              transforms, jacobian_convention="consistent"):
+    """The second half of :func:`mh_step`, given the proposal's
+    log-likelihood: ``(theta, ll, accept)``. A proposal outside the prior
+    support, or a NaN ratio, is rejected."""
     log_ratio = (
         ll_prop + lp_prop
         + log_jacobian(theta_prop, transforms, jacobian_convention)
@@ -341,12 +375,161 @@ def mh_step(pf, theta, ll, factor, n_chain, eps, u_acc, seed_words,
         log_ratio,
     )
     accept = torch.log(u_acc) < log_ratio
-    theta = torch.where(accept[:, None], theta_prop, theta)
-    ll = torch.where(accept, ll_prop, ll)
+    return (torch.where(accept[:, None], theta_prop, theta),
+            torch.where(accept, ll_prop, ll), accept)
+
+
+def mh_step(pf, theta, ll, factor, n_chain, eps, u_acc, seed_words,
+            prior_fns, transforms, jacobian_convention="consistent",
+            se=None):
+    """One random-walk MH step for every chain (``driver.py:484-518``):
+    :func:`mh_propose`, the filter, :func:`mh_accept`.
+
+    ``eps [C, P]`` standard normals, ``u_acc [C]`` uniforms and
+    ``seed_words [C, 2]`` for the filter are given. ``se`` (state
+    estimates) is carried only when given. Returns ``(theta, ll, se,
+    accept)``.
+    """
+    theta_prop, lp_prop = mh_propose(theta, factor, eps, prior_fns,
+                                     transforms)
+    ll_prop, se_prop = pf(seed_words, theta_prop, n_chain)
+    theta, ll, accept = mh_accept(theta, ll, theta_prop, lp_prop, ll_prop,
+                                  u_acc, prior_fns, transforms,
+                                  jacobian_convention)
     if se is not None:
         keep = accept.reshape((-1,) + (1,) * (se.ndim - 1))
         se = torch.where(keep, se_prop, se)
     return theta, ll, se, accept
+
+
+# Captured MH steps (:class:`_StepGraphs`) by :func:`_graph_key`, the
+# least recently used dropped first beyond MH_GRAPH_KEYS keys.
+MH_GRAPH_KEYS = 8
+_GRAPH_DEVICES = ("cuda",)      # device types whose calls replay graphs
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _graph_key(theta, ll, prior_fns, transforms, jacobian_convention):
+    """What the two graphs bake in: the device, the shapes and dtypes of
+    the state, the prior callables by identity, the transforms and the
+    Jacobian convention."""
+    return (theta.device, tuple(theta.shape), theta.dtype, tuple(ll.shape),
+            ll.dtype, tuple(map(id, prior_fns)), tuple(transforms),
+            jacobian_convention)
+
+
+def _capture(fn, stream, pool=None):
+    """``(graph, fn's outputs)``: ``fn``'s kernels captured on ``stream``
+    into a CUDA graph (sharing ``pool``'s memory when given)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(*(() if pool is None else (pool,)),
+                            capture_error_mode="thread_local")
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    return graph, out
+
+
+class _StepGraphs:
+    """One key's MH step as two CUDA graphs around an eager filter call
+    (module docstring). ``propose`` draws the step's words from the step
+    counter on the device, proposes, prices the proposal and advances the
+    counter; ``accept`` takes the filter's log-likelihoods from
+    ``ll_prop`` and updates ``theta``, ``ll`` and ``accepts`` in place.
+    A call loads its state into these static tensors once (:meth:`start`)
+    and copies it out at its end."""
+
+    def __init__(self, prior_fns):
+        self.prior_fns = tuple(prior_fns)   # held: the key has their ids
+        self.stepped = False    # an eager step ran with this key
+        self.failed = False     # its capture raised: eager from then on
+        self.busy = False       # a call holds the static tensors
+        self.propose = self.accept = None
+
+    def capture(self, state, theta, ll, transforms, convention) -> None:
+        """Capture both graphs; raises what the capture raises. The
+        host waits once, for the device's queue, before capturing."""
+        dev, p = theta.device, theta.shape[1]
+        self.theta = torch.empty_like(theta)
+        self.ll = torch.empty_like(ll)
+        self.ll_prop = torch.empty_like(ll)
+        self.accepts = torch.zeros(theta.shape[0], dtype=torch.int64,
+                                   device=dev)
+        self.factors = torch.empty_like(state.factors)
+        self.words = torch.empty_like(state.words)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        prior_fns = self.prior_fns
+
+        def propose():
+            eps, u_acc, seed_words = _draws(self.words, self.step, p)
+            theta_prop, lp_prop = mh_propose(self.theta, self.factors, eps,
+                                             prior_fns, transforms)
+            self.step.add_(1)
+            return theta_prop, lp_prop, u_acc, seed_words
+
+        def accept():
+            theta, ll, acc = mh_accept(self.theta, self.ll, self.theta_prop,
+                                       self.lp_prop, self.ll_prop, self.u_acc,
+                                       prior_fns, transforms, convention)
+            self.theta.copy_(theta)
+            self.ll.copy_(ll)
+            self.accepts.add_(acc)
+
+        host_sync(dev)
+        torch.cuda.synchronize(dev)
+        stream = torch.cuda.Stream(dev)
+        self.propose, out = _capture(propose, stream)
+        self.theta_prop, self.lp_prop, self.u_acc, self.seed_words = out
+        self.accept, _ = _capture(accept, stream, self.propose.pool())
+
+    def start(self, state, theta, ll, accepts, step: int, transforms,
+              convention) -> bool:
+        """Load the call's state, from MH step ``step`` on, capturing the
+        graphs first if they are not yet; False if the capture raised,
+        which leaves the key eager from then on."""
+        if self.propose is None:
+            try:
+                with span("mh_capture"):
+                    self.capture(state, theta, ll, transforms, convention)
+            except RuntimeError:
+                # Work a graph cannot hold, such as a prior that copies a
+                # number from the host: the eager step does the same work.
+                self.failed = True
+                self.propose = self.accept = None
+                count("mh_graph.fallback")
+                return False
+            count("mh_graph.capture")
+        self.theta.copy_(theta)
+        self.ll.copy_(ll)
+        self.accepts.copy_(accepts)
+        self.factors.copy_(state.factors)
+        self.words.copy_(state.words)
+        self.step.fill_(step)
+        return True
+
+
+def _claim_graphs(theta, ll, mh_steps, prior_fns, transforms,
+                  jacobian_convention, latent) -> Optional[_StepGraphs]:
+    """The key's :class:`_StepGraphs`, held for one call; None where the
+    call runs eagerly: state estimates, fewer than 2 MH steps, a tensor
+    off CUDA, a key whose capture failed or that another call holds."""
+    if latent or mh_steps < 2 or theta.device.type not in _GRAPH_DEVICES:
+        return None
+    key = _graph_key(theta, ll, prior_fns, transforms, jacobian_convention)
+    with _GRAPHS_LOCK:
+        graphs = _GRAPHS.get(key)
+        if graphs is None:
+            graphs = _GRAPHS[key] = _StepGraphs(prior_fns)
+            while len(_GRAPHS) > MH_GRAPH_KEYS:
+                _GRAPHS.popitem(last=False)
+        _GRAPHS.move_to_end(key)
+        if graphs.failed or graphs.busy:
+            return None
+        graphs.busy = True
+    return graphs
 
 
 def _init_eval(pf, state: ChainState, return_latent_state_est: bool):
@@ -375,7 +558,9 @@ def sample_chains(pf, state: ChainState, m: int, burn_in: int, prior_fns,
     ``pf(seed_words, theta, n) -> (loglike, state_est)`` is a batched
     filter such as ``sir_sweep_pf_impl(...)(...)``. Burn-in samples never
     enter the output buffer; the kept samples stay on the device and are
-    copied to the host once, at the end.
+    copied to the host once, at the end. On a CUDA device the MH step's
+    own work is replayed as two CUDA graphs around ``pf`` (module
+    docstring), with the same bits.
     """
     if not isinstance(m, (int, np.integer)) or m < 1:
         raise ValueError("m must be an integer >= 1")
@@ -403,20 +588,61 @@ def sample_chains(pf, state: ChainState, m: int, burn_in: int, prior_fns,
             if latent is not None:
                 latent[s - burn_in] = se
 
+    graphs = _claim_graphs(theta, ll, m - 1, prior_fns, transforms,
+                           jacobian_convention, return_latent_state_est)
+    live = None         # ``graphs`` once this call's state is loaded
+    replayed = 0
     record(0)
-    for s in range(1, m):
-        with span("mh_step"):
-            w = step_words(state.words, state.step + s, 3 + 2 * p)
-            u = _uniform(w[:, 2:2 + 2 * p])
-            eps = box_muller(u[:, 0::2], u[:, 1::2])
-            theta, ll, se, accept = mh_step(
-                pf, theta, ll, state.factors, state.n, eps,
-                _uniform(w[:, 2 + 2 * p]), w[:, :2], prior_fns, transforms,
-                jacobian_convention, se=se,
-            )
-            accepts += accept
-            record(s)
+    try:
+        for s in range(1, m):
+            with span("mh_step"):
+                if graphs is not None and graphs.stepped and live is None:
+                    if graphs.start(state, theta, ll, accepts,
+                                    state.step + s, transforms,
+                                    jacobian_convention):
+                        live = graphs
+                    else:
+                        graphs.busy, graphs = False, None
+                if live is not None:
+                    live.propose.replay()
+                    # Fresh copies: a filter may keep what it is given.
+                    ll_prop, _ = pf(live.seed_words.clone(),
+                                    live.theta_prop.clone(), state.n)
+                    if (ll_prop.dtype, ll_prop.shape) == (live.ll.dtype,
+                                                          live.ll.shape):
+                        live.ll_prop.copy_(ll_prop)
+                        live.accept.replay()
+                        theta = live.theta
+                        replayed += 1
+                    else:
+                        # An output the accept graph cannot take as it is:
+                        # the call goes on eagerly from the graphs' state.
+                        theta, ll, accept = mh_accept(
+                            live.theta, live.ll, live.theta_prop,
+                            live.lp_prop, ll_prop, live.u_acc, prior_fns,
+                            transforms, jacobian_convention)
+                        accepts = live.accepts + accept
+                        graphs.busy, graphs, live = False, None, None
+                else:
+                    eps, u_acc, seed_words = _draws(state.words,
+                                                    state.step + s, p)
+                    theta, ll, se, accept = mh_step(
+                        pf, theta, ll, state.factors, state.n, eps, u_acc,
+                        seed_words, prior_fns, transforms,
+                        jacobian_convention, se=se,
+                    )
+                    accepts += accept
+                    if graphs is not None:
+                        graphs.stepped = True
+                record(s)
+    finally:
+        if graphs is not None:
+            graphs.busy = False
+    if live is not None:
+        theta, ll, accepts = live.theta.clone(), live.ll.clone(), live.accepts
     count("mh_steps", m - 1)
+    if replayed:
+        count("mh_graph.step", replayed)
 
     new_state = dataclasses.replace(state, theta=theta, ll=ll, se=se,
                                     step=state.step + m - 1)

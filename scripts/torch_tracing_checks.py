@@ -11,8 +11,12 @@ host wait on the device warns, and each warning is traced to the
 package's line that issued it. Explicit ``torch.cuda.synchronize`` calls
 do not warn and are counted by a wrapper. The call's ``host_sync``
 counter (``recent_calls()``) should equal warnings plus synchronizes.
-Prints one JSON line a cell, the sites with their counts first, and the
-call's ``sweep.lane_days`` (chains x lanes x days its K1 launches cover).
+The set-up has captured the MH step's CUDA graphs, so that call replays
+them and captures nothing; a second call after the cached graphs are
+dropped (``recapture``) captures them again, and its wait for the capture
+counts too. Prints one JSON line a cell, the sites with their counts
+first, and the call's ``sweep.lane_days`` (chains x lanes x days its K1
+launches cover).
 
 ``views``: for each sampling cell, ``--calls`` calls of its shape timed
 both on the benchmark's host clock (``drivers/sample_loop.py``: the
@@ -68,17 +72,13 @@ def _site() -> str:
                                    for f in reversed(stack[-3:]))
 
 
-def syncs(name: str, seed: int) -> dict:
+def _debug_call(loop) -> dict:
+    """One call of ``loop`` under ``set_sync_debug_mode("warn")``: the
+    sites that made the host wait, and the call's counters."""
     import torch
 
-    from benchmark.lib.spec import load_cell
     from bayesssm_tpu_torch.utils import timing
 
-    dev = torch.device("cuda", 0)
-    cell = load_cell(name)
-    driver = cell.driver()
-    loop = driver.setup(cell, seed, dev)
-    torch.cuda.synchronize(dev)
     sites = collections.Counter()
     real_sync = torch.cuda.synchronize
 
@@ -117,12 +117,34 @@ def syncs(name: str, seed: int) -> dict:
     counters = roots[-1]["counters"] if roots else {}
     # torch warns once when the mode is first set, from no line of ours.
     seen = sum(n for k, n in sites.items() if not k.startswith("outside"))
-    return dict(cell=name, sites=dict(sites.most_common()), seen=seen,
+    return dict(sites=dict(sites.most_common()), seen=seen,
                 counted=counters.get("host_sync", 0),
+                captures=counters.get("mh_graph.capture", 0),
                 mh_steps=counters.get("mh_steps", 0),
+                graph_steps=counters.get("mh_graph.step", 0),
                 lane_days=counters.get("sweep.lane_days", 0),
                 match=seen == counters.get("host_sync", 0),
                 call_s=round(wall, 3))
+
+
+def syncs(name: str, seed: int) -> dict:
+    """A call of the cell after its set-up, whose MH step graphs are
+    cached (no capture, no wait of its own), then one after the cache is
+    dropped, which captures them again and waits once for it."""
+    import torch
+
+    from benchmark.lib.spec import load_cell
+    from bayesssm_tpu_torch.pmmh import driver
+
+    dev = torch.device("cuda", 0)
+    cell = load_cell(name)
+    loop = cell.driver().setup(cell, seed, dev)
+    torch.cuda.synchronize(dev)
+    cached = _debug_call(loop)
+    driver._GRAPHS.clear()
+    recaptured = _debug_call(loop)
+    return dict(cell=name, **cached, recapture=recaptured,
+                both_match=cached["match"] and recaptured["match"])
 
 
 def views(name: str, seed: int, calls: int) -> dict:
@@ -255,7 +277,7 @@ def main(argv=None) -> int:
     if "syncs" in what:
         for i, name in enumerate(args.cells):
             out = syncs(name, args.seed + i)
-            ok = ok and out["match"]
+            ok = ok and out["both_match"]
             print(json.dumps(out), flush=True)
     sampling = [c for c in args.cells if c != "sir.pmmh"]
     if "views" in what:
