@@ -50,19 +50,18 @@ uniforms and filter words. A step's words depend only on the chain words
 and the step's index, so how the steps are cut into chunks changes no
 sample.
 
-**CUDA graphs.** On a CUDA device, :func:`sample_chains` runs the MH
-step's own work (words, draws, proposal, priors, Jacobians, ratio,
-decision and update; ~225 small kernels) as two CUDA graphs on either
-side of the filter, which stays an eager call: a filter is any callable,
-and the benchmark's and users' filters run Python on every call, time it,
-or keep what they are given. Each step the filter gets fresh copies of
-the proposal and its words. The graphs are captured once per key
-(:func:`_graph_key`: device, shapes, the prior callables, transforms and
-Jacobian convention), on the key's second step in the process, and kept
-across calls (:class:`_StepGraphs`); a key whose capture raises runs
-eagerly from then on. Calls with state estimates, with fewer than 2 MH
-steps or on the CPU run eagerly. Replayed kernels are the eager ones, so
-the samples are the same bits either way.
+**CUDA graphs.** Every MH step of :func:`sample_chains` is one
+:class:`_MHStep`: two halves around the filter, ``propose`` (words,
+draws, proposal, prior) and ``accept`` (:func:`mh_accept`, the update).
+The filter stays a plain call on fresh copies of the proposal and its
+words: a filter is any callable, and the benchmark's and users' filters
+run Python on every call, time it, or keep what they are given. On a
+CUDA device the halves (~225 small kernels) are captured as CUDA graphs
+once per key (:func:`_graph_key`: device, shapes, the prior callables,
+transforms and Jacobian convention), after the key's first step in the
+process, and replayed across calls; elsewhere, for a key whose capture
+raised, and in calls with state estimates or fewer than 2 MH steps, they
+are called directly. Replayed kernels are the called ones: the same bits.
 
 **Meshes.** ``pmmh(mesh=...)`` runs on every rank of a ``(chains,
 particles)`` mesh (``parallel/mesh.py``), each rank on its own block of
@@ -84,7 +83,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import math
 import pathlib
 import threading
 import warnings
@@ -101,7 +99,6 @@ from bayesssm_tpu_torch.output import PMMHOutput
 from bayesssm_tpu_torch.pmmh.priors import sum_log_priors
 from bayesssm_tpu_torch.pmmh.transforms import (
     back_transform_params,
-    log_jacobian,
     resolve_transforms,
     transform_params,
 )
@@ -109,6 +106,7 @@ from bayesssm_tpu_torch.pmmh.tuning import (
     TuneControl,
     _make_pf_loglike,
     default_tune_control,
+    mh_accept,
     run_pilot_chain,
 )
 from bayesssm_tpu_torch.utils.checkpoint import (
@@ -338,16 +336,6 @@ def _uniform(word: torch.Tensor) -> torch.Tensor:
     return (word >> 8).to(torch.float32) * _INV24
 
 
-def _draws(words: torch.Tensor, step, p: int):
-    """``(eps [C, P], u_acc [C], filter words [C, 2])`` of MH step
-    ``step`` (module docstring; ``step`` as :func:`step_words` takes
-    it)."""
-    w = step_words(words, step, 3 + 2 * p)
-    u = _uniform(w[:, 2:2 + 2 * p])
-    return (box_muller(u[:, 0::2], u[:, 1::2]), _uniform(w[:, 2 + 2 * p]),
-            w[:, :2])
-
-
 def mh_propose(theta, factor, eps, prior_fns, transforms):
     """The first half of :func:`mh_step`: ``(theta_prop [C, P], lp_prop
     [C])``, the random-walk proposal on the transformed scale and its log
@@ -356,27 +344,6 @@ def mh_propose(theta, factor, eps, prior_fns, transforms):
     zp = z + (factor * eps[:, None, :]).sum(dim=-1)
     theta_prop = back_transform_params(zp, transforms)
     return theta_prop, sum_log_priors(theta_prop, prior_fns)
-
-
-def mh_accept(theta, ll, theta_prop, lp_prop, ll_prop, u_acc, prior_fns,
-              transforms, jacobian_convention="consistent"):
-    """The second half of :func:`mh_step`, given the proposal's
-    log-likelihood: ``(theta, ll, accept)``. A proposal outside the prior
-    support, or a NaN ratio, is rejected."""
-    log_ratio = (
-        ll_prop + lp_prop
-        + log_jacobian(theta_prop, transforms, jacobian_convention)
-    ) - (
-        ll + sum_log_priors(theta, prior_fns)
-        + log_jacobian(theta, transforms, jacobian_convention)
-    )
-    log_ratio = torch.where(
-        torch.isnan(log_ratio) | ~torch.isfinite(lp_prop), -math.inf,
-        log_ratio,
-    )
-    accept = torch.log(u_acc) < log_ratio
-    return (torch.where(accept[:, None], theta_prop, theta),
-            torch.where(accept, ll_prop, ll), accept)
 
 
 def mh_step(pf, theta, ll, factor, n_chain, eps, u_acc, seed_words,
@@ -402,12 +369,11 @@ def mh_step(pf, theta, ll, factor, n_chain, eps, u_acc, seed_words,
     return theta, ll, se, accept
 
 
-# Captured MH steps (:class:`_StepGraphs`) by :func:`_graph_key`, the
-# least recently used dropped first beyond MH_GRAPH_KEYS keys.
+# The MH steps (:class:`_MHStep`) of the keys (:func:`_graph_key`) used
+# last, the least recently used dropped first beyond MH_GRAPH_KEYS keys.
 MH_GRAPH_KEYS = 8
-_GRAPH_DEVICES = ("cuda",)      # device types whose calls replay graphs
-_GRAPHS: collections.OrderedDict = collections.OrderedDict()
-_GRAPHS_LOCK = threading.Lock()
+_STEPS: collections.OrderedDict = collections.OrderedDict()
+_STEPS_LOCK = threading.Lock()
 
 
 def _graph_key(theta, ll, prior_fns, transforms, jacobian_convention):
@@ -419,117 +385,171 @@ def _graph_key(theta, ll, prior_fns, transforms, jacobian_convention):
             jacobian_convention)
 
 
-def _capture(fn, stream, pool=None):
-    """``(graph, fn's outputs)``: ``fn``'s kernels captured on ``stream``
-    into a CUDA graph (sharing ``pool``'s memory when given)."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(stream):
-        graph.capture_begin(*(() if pool is None else (pool,)),
-                            capture_error_mode="thread_local")
-        try:
-            out = fn()
-        finally:
-            graph.capture_end()
-    return graph, out
-
-
-class _StepGraphs:
-    """One key's MH step as two CUDA graphs around an eager filter call
-    (module docstring). ``propose`` draws the step's words from the step
-    counter on the device, proposes, prices the proposal and advances the
-    counter; ``accept`` takes the filter's log-likelihoods from
-    ``ll_prop`` and updates ``theta``, ``ll`` and ``accepts`` in place.
-    A call loads its state into these static tensors once (:meth:`start`)
-    and copies it out at its end."""
-
-    def __init__(self, prior_fns):
-        self.prior_fns = tuple(prior_fns)   # held: the key has their ids
-        self.stepped = False    # an eager step ran with this key
-        self.failed = False     # its capture raised: eager from then on
-        self.busy = False       # a call holds the static tensors
-        self.propose = self.accept = None
-
-    def capture(self, state, theta, ll, transforms, convention) -> None:
-        """Capture both graphs; raises what the capture raises. The
-        host waits once, for the device's queue, before capturing."""
-        dev, p = theta.device, theta.shape[1]
-        self.theta = torch.empty_like(theta)
-        self.ll = torch.empty_like(ll)
-        self.ll_prop = torch.empty_like(ll)
-        self.accepts = torch.zeros(theta.shape[0], dtype=torch.int64,
-                                   device=dev)
-        self.factors = torch.empty_like(state.factors)
-        self.words = torch.empty_like(state.words)
-        self.step = torch.zeros((), dtype=torch.int64, device=dev)
-        prior_fns = self.prior_fns
-
-        def propose():
-            eps, u_acc, seed_words = _draws(self.words, self.step, p)
-            theta_prop, lp_prop = mh_propose(self.theta, self.factors, eps,
-                                             prior_fns, transforms)
-            self.step.add_(1)
-            return theta_prop, lp_prop, u_acc, seed_words
-
-        def accept():
-            theta, ll, acc = mh_accept(self.theta, self.ll, self.theta_prop,
-                                       self.lp_prop, self.ll_prop, self.u_acc,
-                                       prior_fns, transforms, convention)
-            self.theta.copy_(theta)
-            self.ll.copy_(ll)
-            self.accepts.add_(acc)
-
+def _capture(propose, accept, dev):
+    """``((graph, proposal), (graph, mask))``: ``propose()`` and then
+    ``accept(proposal)`` captured into CUDA graphs on a side stream of
+    ``dev`` that share one memory pool; None on a device without CUDA
+    graphs. Raises what the capture raises. The host waits once, for the
+    device's queue, first."""
+    if dev.type != "cuda":
+        return None
+    with span("mh_capture"):
         host_sync(dev)
         torch.cuda.synchronize(dev)
-        stream = torch.cuda.Stream(dev)
-        self.propose, out = _capture(propose, stream)
-        self.theta_prop, self.lp_prop, self.u_acc, self.seed_words = out
-        self.accept, _ = _capture(accept, stream, self.propose.pool())
+        stream, pool, args, captured = torch.cuda.Stream(dev), (), (), []
+        for fn in (propose, accept):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                graph.capture_begin(*pool, capture_error_mode="thread_local")
+                try:
+                    out = fn(*args)
+                finally:
+                    graph.capture_end()
+            captured.append((graph, out))
+            pool, args = (graph.pool(),), (out,)
+    return captured
 
-    def start(self, state, theta, ll, accepts, step: int, transforms,
-              convention) -> bool:
-        """Load the call's state, from MH step ``step`` on, capturing the
-        graphs first if they are not yet; False if the capture raised,
-        which leaves the key eager from then on."""
-        if self.propose is None:
-            try:
-                with span("mh_capture"):
-                    self.capture(state, theta, ll, transforms, convention)
-            except RuntimeError:
-                # Work a graph cannot hold, such as a prior that copies a
-                # number from the host: the eager step does the same work.
-                self.failed = True
-                self.propose = self.accept = None
-                count("mh_graph.fallback")
-                return False
-            count("mh_graph.capture")
+
+class _MHStep:
+    """One key's MH step (module docstring): the state a call's steps
+    update, and the two halves around the filter, replayed as CUDA graphs
+    where they were captured and called directly elsewhere.
+
+    ``propose()`` draws the step's words from the step counter on the
+    device, proposes, prices the proposal (``proposal``) and advances the
+    counter; ``accept(ll_prop)`` decides, updates ``theta``, ``ll`` and
+    ``accepts`` and leaves the decisions in ``mask``. A direct half binds
+    what it computes; a replay writes it into the tensors the capture
+    bound (``bound``), which :meth:`load` copies a call's state into. The
+    halves are captured after the key's first direct step whose filter
+    output has the key's dtype and shape (``ll_like``). ``graphs`` is None
+    until then, and empty for good where the device has none, where the
+    capture raised, and for a step outside the cache.
+    """
+
+    def __init__(self, ll, prior_fns, transforms, convention, graphs=None):
+        self.ll_like = (ll.dtype, ll.shape)
+        self.prior_fns = tuple(prior_fns)   # held: the key has their ids
+        self.transforms, self.convention = transforms, convention
+        self.graphs = graphs
+        self.busy = False       # a call holds the step
+
+    @classmethod
+    def claim(cls, theta, ll, mh_steps, prior_fns, transforms, convention,
+              latent) -> "_MHStep":
+        """The key's cached step, held for one call; an uncached one,
+        which never captures, for a call with state estimates or fewer
+        than 2 MH steps, or when another call holds the key's."""
+        if latent or mh_steps < 2:
+            return cls(ll, prior_fns, transforms, convention, ())
+        key = _graph_key(theta, ll, prior_fns, transforms, convention)
+        with _STEPS_LOCK:
+            step = _STEPS.get(key)
+            if step is None:
+                step = _STEPS[key] = cls(ll, prior_fns, transforms,
+                                         convention)
+                while len(_STEPS) > MH_GRAPH_KEYS:
+                    _STEPS.popitem(last=False)
+            _STEPS.move_to_end(key)
+            if step.busy:
+                return cls(ll, prior_fns, transforms, convention, ())
+            step.busy = True
+        return step
+
+    def load(self, state: ChainState, theta, ll) -> None:
+        """Start a call from ``theta`` and ``ll``, its MH steps counted
+        from ``state.step + 1``."""
+        self._bind(dict(
+            theta=theta, ll=ll, factors=state.factors, words=state.words,
+            accepts=torch.zeros_like(theta[:, 0], dtype=torch.int64),
+            step=torch.full((), state.step + 1, device=theta.device)))
+
+    def _bind(self, live) -> None:
+        """Bind ``live``, or copy it into the tensors the graphs hold."""
+        self.replaying = bool(self.graphs)
+        if self.replaying:
+            vars(self).update(self.bound)
+            for name, value in live.items():
+                getattr(self, name).copy_(value)
+        else:
+            vars(self).update(live)
+
+    def _propose(self):
+        # The step's words (module docstring): the filter's, the
+        # proposal's normals, the accept uniform.
+        p = self.theta.shape[1]
+        w = step_words(self.words, self.step, 3 + 2 * p)
+        u = _uniform(w[:, 2:2 + 2 * p])
+        theta_prop, lp_prop = mh_propose(
+            self.theta, self.factors, box_muller(u[:, 0::2], u[:, 1::2]),
+            self.prior_fns, self.transforms)
+        self.step.add_(1)
+        return w[:, :2], theta_prop, lp_prop, _uniform(w[:, 2 + 2 * p])
+
+    def _accept(self, proposal):
+        _, theta_prop, lp_prop, u_acc = proposal
+        theta, ll, mask = mh_accept(self.theta, self.ll, theta_prop, lp_prop,
+                                    self.ll_prop, u_acc, self.prior_fns,
+                                    self.transforms, self.convention)
+        self.accepts.add_(mask)
+        return theta, ll, mask
+
+    def _accept_in_place(self, proposal):
+        theta, ll, mask = self._accept(proposal)
         self.theta.copy_(theta)
         self.ll.copy_(ll)
-        self.accepts.copy_(accepts)
-        self.factors.copy_(state.factors)
-        self.words.copy_(state.words)
-        self.step.fill_(step)
-        return True
+        return mask
 
+    def propose(self):
+        """The step's proposal: ``(filter words [C, 2], theta_prop [C,
+        P])``."""
+        if self.replaying:
+            self.graphs[0].replay()
+        else:
+            self.proposal = self._propose()
+        return self.proposal[:2]
 
-def _claim_graphs(theta, ll, mh_steps, prior_fns, transforms,
-                  jacobian_convention, latent) -> Optional[_StepGraphs]:
-    """The key's :class:`_StepGraphs`, held for one call; None where the
-    call runs eagerly: state estimates, fewer than 2 MH steps, a tensor
-    off CUDA, a key whose capture failed or that another call holds."""
-    if latent or mh_steps < 2 or theta.device.type not in _GRAPH_DEVICES:
-        return None
-    key = _graph_key(theta, ll, prior_fns, transforms, jacobian_convention)
-    with _GRAPHS_LOCK:
-        graphs = _GRAPHS.get(key)
-        if graphs is None:
-            graphs = _GRAPHS[key] = _StepGraphs(prior_fns)
-            while len(_GRAPHS) > MH_GRAPH_KEYS:
-                _GRAPHS.popitem(last=False)
-        _GRAPHS.move_to_end(key)
-        if graphs.failed or graphs.busy:
-            return None
-        graphs.busy = True
-    return graphs
+    def accept(self, ll_prop) -> None:
+        """Decide on the proposal given its log-likelihoods ``ll_prop``."""
+        fits = (ll_prop.dtype, ll_prop.shape) == self.ll_like
+        if self.replaying and fits:
+            self.ll_prop.copy_(ll_prop)
+            self.graphs[1].replay()
+            count("mh_graph.step")
+            return
+        # A filter output the accept graph cannot take as it is, such as
+        # float64 log-likelihoods, ends the replays for the rest of the
+        # call: the state is bound from here on, in the output's dtype.
+        self.replaying = False
+        self.ll_prop = ll_prop
+        self.theta, self.ll, self.mask = self._accept(self.proposal)
+        if self.graphs is None and fits:
+            self._capture_halves()
+
+    def _capture_halves(self) -> None:
+        """Capture both halves on tensors of their own, then go on from
+        the live state: replayed if the capture took, directly if not."""
+        live = {name: getattr(self, name) for name in
+                ("theta", "ll", "accepts", "factors", "words", "step")}
+        bound = {name: torch.empty_like(t) for name, t in live.items()}
+        bound["ll_prop"] = torch.empty_like(self.ll)
+        vars(self).update(bound)
+        try:
+            graphs = _capture(self._propose, self._accept_in_place,
+                              self.theta.device)
+        except RuntimeError:
+            # Work a graph cannot hold, such as a prior that copies a
+            # number from the host: the direct halves do the same work.
+            count("mh_graph.fallback")
+            graphs = None
+        if graphs:
+            count("mh_graph.capture")
+            (propose, proposal), (accept, mask) = graphs
+            self.bound = dict(bound, proposal=proposal, mask=mask)
+            self.graphs = (propose, accept)
+        else:
+            self.graphs = ()
+        self._bind(live)
 
 
 def _init_eval(pf, state: ChainState, return_latent_state_est: bool):
@@ -558,8 +578,9 @@ def sample_chains(pf, state: ChainState, m: int, burn_in: int, prior_fns,
     ``pf(seed_words, theta, n) -> (loglike, state_est)`` is a batched
     filter such as ``sir_sweep_pf_impl(...)(...)``. Burn-in samples never
     enter the output buffer; the kept samples stay on the device and are
-    copied to the host once, at the end. On a CUDA device the MH step's
-    own work is replayed as two CUDA graphs around ``pf`` (module
+    copied to the host once, at the end. Every MH step is the key's
+    :class:`_MHStep` around ``pf``: its halves replayed as CUDA graphs
+    where they were captured and called directly elsewhere (module
     docstring), with the same bits.
     """
     if not isinstance(m, (int, np.integer)) or m < 1:
@@ -580,78 +601,42 @@ def sample_chains(pf, state: ChainState, m: int, burn_in: int, prior_fns,
     keep = m - burn_in
     samples = torch.empty((c, keep, p), dtype=torch.float32, device=dev)
     latent = ([None] * keep) if return_latent_state_est else None
-    accepts = torch.zeros(c, dtype=torch.int64, device=dev)
 
-    def record(s):
+    def record(s, theta):
         if s >= burn_in:
             samples[:, s - burn_in] = theta
             if latent is not None:
                 latent[s - burn_in] = se
 
-    graphs = _claim_graphs(theta, ll, m - 1, prior_fns, transforms,
-                           jacobian_convention, return_latent_state_est)
-    live = None         # ``graphs`` once this call's state is loaded
-    replayed = 0
-    record(0)
+    record(0, theta)
+    step = _MHStep.claim(theta, ll, m - 1, prior_fns, transforms,
+                         jacobian_convention, return_latent_state_est)
     try:
+        step.load(state, theta, ll)
         for s in range(1, m):
             with span("mh_step"):
-                if graphs is not None and graphs.stepped and live is None:
-                    if graphs.start(state, theta, ll, accepts,
-                                    state.step + s, transforms,
-                                    jacobian_convention):
-                        live = graphs
-                    else:
-                        graphs.busy, graphs = False, None
-                if live is not None:
-                    live.propose.replay()
-                    # Fresh copies: a filter may keep what it is given.
-                    ll_prop, _ = pf(live.seed_words.clone(),
-                                    live.theta_prop.clone(), state.n)
-                    if (ll_prop.dtype, ll_prop.shape) == (live.ll.dtype,
-                                                          live.ll.shape):
-                        live.ll_prop.copy_(ll_prop)
-                        live.accept.replay()
-                        theta = live.theta
-                        replayed += 1
-                    else:
-                        # An output the accept graph cannot take as it is:
-                        # the call goes on eagerly from the graphs' state.
-                        theta, ll, accept = mh_accept(
-                            live.theta, live.ll, live.theta_prop,
-                            live.lp_prop, ll_prop, live.u_acc, prior_fns,
-                            transforms, jacobian_convention)
-                        accepts = live.accepts + accept
-                        graphs.busy, graphs, live = False, None, None
-                else:
-                    eps, u_acc, seed_words = _draws(state.words,
-                                                    state.step + s, p)
-                    theta, ll, se, accept = mh_step(
-                        pf, theta, ll, state.factors, state.n, eps, u_acc,
-                        seed_words, prior_fns, transforms,
-                        jacobian_convention, se=se,
-                    )
-                    accepts += accept
-                    if graphs is not None:
-                        graphs.stepped = True
-                record(s)
+                seed_words, theta_prop = step.propose()
+                # Fresh copies: a filter may keep what it is given.
+                ll_prop, se_prop = pf(seed_words.clone(), theta_prop.clone(),
+                                      state.n)
+                step.accept(ll_prop)
+                if se is not None:
+                    se = torch.where(
+                        step.mask.reshape((-1,) + (1,) * (se.ndim - 1)),
+                        se_prop, se)
+                record(s, step.theta)
+        theta, ll = step.theta.clone(), step.ll.clone()
+        host_sync(dev, 2 + (latent is not None))
+        accepted = step.accepts.cpu().numpy()
     finally:
-        if graphs is not None:
-            graphs.busy = False
-    if live is not None:
-        theta, ll, accepts = live.theta.clone(), live.ll.clone(), live.accepts
+        step.busy = False
     count("mh_steps", m - 1)
-    if replayed:
-        count("mh_graph.step", replayed)
 
-    new_state = dataclasses.replace(state, theta=theta, ll=ll, se=se,
-                                    step=state.step + m - 1)
-    host_sync(dev, 2 + (latent is not None))
-    accepted = accepts.cpu().numpy()
     return SampleResult(
         samples=samples.cpu().numpy(),
         acceptance_rate=accepted / max(m - 1, 1),
-        state=new_state,
+        state=dataclasses.replace(state, theta=theta, ll=ll, se=se,
+                                  step=state.step + m - 1),
         latent=(torch.stack(latent, dim=1).cpu().numpy()
                 if latent is not None else None),
         accepted=accepted,

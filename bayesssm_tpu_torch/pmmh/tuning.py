@@ -4,7 +4,8 @@
   chain of length ``pilot_m`` with per-parameter proposal SDs; a proposal
   outside the prior support is drawn again, at most
   ``MAX_PROPOSAL_TRIES`` times (Q7). Posterior mean and covariance are
-  taken on the UNTRANSFORMED second half of the chain (Q6).
+  taken on the UNTRANSFORMED second half of the chain (Q6). Each step
+  decides with :func:`mh_accept`, the sampler's rule.
 * :func:`pilot_run` — ``pilot_reps`` filter evaluations at the pilot
   posterior mean; ``target_n = clamp(ceil(pilot_n * var), 50, 1000)``
   (Q10).
@@ -41,8 +42,8 @@ from bayesssm_tpu_torch.utils.timing import (
     spanned,
 )
 
-__all__ = ["TuneControl", "default_tune_control", "run_pilot_chain",
-           "pilot_run", "_make_pf_loglike"]
+__all__ = ["TuneControl", "default_tune_control", "mh_accept",
+           "run_pilot_chain", "pilot_run", "_make_pf_loglike"]
 
 _RESAMPLE_ALGOS = ("SISAR", "SISR", "SIS")
 _RESAMPLE_FNS = ("stratified", "systematic", "multinomial")
@@ -179,6 +180,29 @@ def _make_pf_loglike(
     return pf
 
 
+def mh_accept(theta, ll, theta_prop, lp_prop, ll_prop, u_acc, prior_fns,
+              transforms, jacobian_convention="consistent"):
+    """The Metropolis-Hastings decision of every chain, given the
+    proposal's log prior ``lp_prop`` and log-likelihood ``ll_prop`` and
+    the uniforms ``u_acc``: ``(theta, ll, accept)``. A proposal outside
+    the prior support, or a NaN ratio, is rejected. The pilot chain and
+    the sampler (``driver.mh_step``) both decide with it."""
+    log_ratio = (
+        ll_prop + lp_prop
+        + log_jacobian(theta_prop, transforms, jacobian_convention)
+    ) - (
+        ll + sum_log_priors(theta, prior_fns)
+        + log_jacobian(theta, transforms, jacobian_convention)
+    )
+    log_ratio = torch.where(
+        torch.isnan(log_ratio) | ~torch.isfinite(lp_prop), -math.inf,
+        log_ratio,
+    )
+    accept = torch.log(u_acc) < log_ratio
+    return (torch.where(accept[:, None], theta_prop, theta),
+            torch.where(accept, ll_prop, ll), accept)
+
+
 def _propose_until_valid(key, z, proposal_sd, transforms, prior_fns,
                          theta_curr):
     """Bounded re-propose loop (Q7) for every chain of ``key [C, 2]``.
@@ -266,20 +290,10 @@ def run_pilot_chain(
             theta_prop = _propose_until_valid(k_prop, z, proposal_sd,
                                               transforms, prior_fns, theta)
             ll_prop, _ = pf(k_pf, theta_prop)
-            log_ratio = (
-                sum_log_priors(theta_prop, prior_fns)
-                + ll_prop
-                + log_jacobian(theta_prop, transforms, jacobian_convention)
-            ) - (
-                sum_log_priors(theta, prior_fns)
-                + ll
-                + log_jacobian(theta, transforms, jacobian_convention)
-            )
-            log_ratio = torch.where(torch.isnan(log_ratio), -math.inf,
-                                    log_ratio)
-            accept = torch.log(threefry.uniform(k_acc)) < log_ratio
-            theta = torch.where(accept[:, None], theta_prop, theta)
-            ll = torch.where(accept, ll_prop, ll)
+            theta, ll, accept = mh_accept(
+                theta, ll, theta_prop, sum_log_priors(theta_prop, prior_fns),
+                ll_prop, threefry.uniform(k_acc), prior_fns, transforms,
+                jacobian_convention)
             thetas.append(theta)
             lls.append(ll)
             accepted = accepted + accept.to(torch.float32)

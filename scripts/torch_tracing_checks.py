@@ -141,7 +141,7 @@ def syncs(name: str, seed: int) -> dict:
     loop = cell.driver().setup(cell, seed, dev)
     torch.cuda.synchronize(dev)
     cached = _debug_call(loop)
-    driver._GRAPHS.clear()
+    driver._STEPS.clear()
     recaptured = _debug_call(loop)
     return dict(cell=name, **cached, recapture=recaptured,
                 both_match=cached["match"] and recaptured["match"])

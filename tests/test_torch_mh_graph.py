@@ -1,18 +1,18 @@
-"""The MH step as two CUDA graphs around an eager filter
-(``bayesssm_tpu_torch/pmmh/driver.py``: ``mh_propose``, ``mh_accept``,
-``_StepGraphs``, ``sample_chains``).
+"""The MH step as two halves around the filter, replayed as CUDA graphs
+where captured (``bayesssm_tpu_torch/pmmh/driver.py``: ``mh_propose``,
+``mh_accept``, ``_MHStep``, ``sample_chains``).
 
 On the CPU: the step counter as a device tensor gives the int step's
 words; the two halves compose to the step as it was before the split
 (``_mh_step_before``, its code kept here); ``sample_chains`` gives the
 samples, accept counts and state of the loop it replaced
-(``_sample_before``) and replays nothing; and the graph path's
-bookkeeping (static tensors, the step counter, the switch after one eager
-step, the copies a filter is given, fallback and the cache) runs with
-captures that run their function instead of recording it (``fake_graphs``).
-On the card (``-m cuda``, skipped here): real captures, bit for bit with
-the eager path. The file imports no JAX, so the card runs it with
-``--noconftest``.
+(``_sample_before``) and replays nothing; and the path the card runs
+(the tensors the capture binds, the step counter, the capture after one
+direct step, the copies a filter is given, fallback and the cache) runs
+with captures that run their function instead of recording it
+(``fake_graphs``). On the card (``-m cuda``, skipped here): real
+captures, bit for bit with the halves called directly. The file imports
+no JAX, so the card runs it with ``--noconftest``.
 """
 
 import collections
@@ -221,40 +221,38 @@ def test_sample_chains_on_the_cpu_is_the_loop_before_and_replays_nothing(
 
 class _FakeGraph:
     """A capture that runs its function, and a replay that runs it again
-    and writes its outputs into the first run's, as a replay writes into
-    the captured outputs."""
+    on the same arguments and writes its outputs into the first run's, as
+    a replay writes into the captured outputs."""
 
-    def __init__(self, fn):
-        self.fn = fn
-        self.out = fn()
+    def __init__(self, fn, *args):
+        self.fn, self.args = fn, args
+        self.out = fn(*args)
 
     def replay(self):
-        new = self.fn()
-        for old, value in zip(self.out or (), new or ()):
-            old.copy_(value)
-
-    def pool(self):
-        return None
+        new = self.fn(*self.args)
+        if isinstance(new, torch.Tensor):
+            self.out.copy_(new)
+        else:
+            for old, value in zip(self.out, new):
+                old.copy_(value)
 
 
 @pytest.fixture
 def fake_graphs(monkeypatch):
-    """The graph path on the CPU, with an empty cache; ``fail`` makes the
-    captures raise as a capture of host work does."""
+    """The path the card runs, on the CPU, with an empty cache; ``fail``
+    makes the captures raise as a capture of host work does."""
     fail = []
 
-    def capture(fn, stream, pool=None):
+    def capture(propose, accept, dev):
         if fail:
             raise RuntimeError("operation not permitted when stream is "
                                "capturing")
-        graph = _FakeGraph(fn)
-        return graph, graph.out
+        first = _FakeGraph(propose)
+        second = _FakeGraph(accept, first.out)
+        return [(first, first.out), (second, second.out)]
 
-    monkeypatch.setattr(driver, "_GRAPH_DEVICES", ("cuda", "cpu"))
-    monkeypatch.setattr(driver, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setattr(driver, "_STEPS", collections.OrderedDict())
     monkeypatch.setattr(driver, "_capture", capture)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "Stream", lambda *a: None)
     timing.reset()
     yield fail
     timing.reset()
@@ -285,11 +283,11 @@ def test_the_graph_path_keeps_the_eager_bits_and_captures_once_a_key(
     _assert_same(second, _sample_before(pf, first.state, 5, burn_in,
                                         prior_fns, transforms))
     assert counted == {"mh_graph.step": 4}
-    # The state handed back is no static tensor of the graphs.
-    (graphs,) = driver._GRAPHS.values()
-    assert second.state.theta.data_ptr() != graphs.theta.data_ptr()
-    assert second.state.ll.data_ptr() != graphs.ll.data_ptr()
-    assert not graphs.busy
+    # The state handed back is no tensor the graphs hold.
+    (step,) = driver._STEPS.values()
+    assert second.state.theta.data_ptr() != step.bound["theta"].data_ptr()
+    assert second.state.ll.data_ptr() != step.bound["ll"].data_ptr()
+    assert not step.busy
 
 
 def test_a_filter_that_keeps_its_inputs_sees_each_steps_own(sir,
@@ -343,15 +341,24 @@ def test_a_filter_output_the_graph_cannot_take_finishes_the_call_eagerly(
     assert res.state.ll.dtype == torch.float64
     _assert_same(res, _sample_before(pf64, first.state, 5, 0, prior_fns,
                                      transforms))
+    # A key first stepped with such an output is not captured from it, so
+    # a later call whose filter fits the key keeps its own bits.
+    st = sample_chains(pf, _state(4, 14), 1, 0, prior_fns, transforms).state
+    _, counted = _sample(pf64, st, 4, 0, prior_fns, transforms)
+    assert counted == {}
+    res, counted = _sample(pf, st, 4, 0, prior_fns, transforms)
+    assert counted == {"mh_graph.capture": 1, "mh_graph.step": 2}
+    assert res.state.ll.dtype == torch.float32
+    _assert_same(res, _sample_before(pf, st, 4, 0, prior_fns, transforms))
 
 
 def test_short_calls_and_state_estimates_run_eagerly(sir, fake_graphs):
     pf, prior_fns, transforms = sir
     _, counted = _sample(pf, _state(8, 15), 2, 0, prior_fns, transforms)
-    assert counted == {} and not driver._GRAPHS
+    assert counted == {} and not driver._STEPS
     res, counted = _sample(pf, _state(8, 15), 5, 0, prior_fns, transforms,
                            return_latent_state_est=True)
-    assert counted == {} and not driver._GRAPHS
+    assert counted == {} and not driver._STEPS
     assert res.latent.shape[:2] == (8, 5)
 
 
@@ -363,7 +370,7 @@ def test_the_cache_keeps_the_most_recent_keys(sir, fake_graphs):
                   log_priors["gamma"]]
         _, counted = _sample(pf, _state(4, 16), 3, 0, priors, transforms)
         assert counted == {"mh_graph.capture": 1, "mh_graph.step": 1}
-    assert len(driver._GRAPHS) == driver.MH_GRAPH_KEYS
+    assert len(driver._STEPS) == driver.MH_GRAPH_KEYS
 
 
 def test_the_benchmark_reads_the_share_of_replayed_steps(monkeypatch):
@@ -401,7 +408,7 @@ def dev():
 
 @pytest.fixture
 def fresh(monkeypatch):
-    monkeypatch.setattr(driver, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setattr(driver, "_STEPS", collections.OrderedDict())
     timing.reset()
     yield
     timing.reset()
@@ -424,8 +431,11 @@ def _card_sir(path, c, dev):
 
 
 def _eager(monkeypatch, *args, **kwargs):
+    """``sample_chains`` with the halves called directly: no capture, in a
+    cache of its own."""
     with monkeypatch.context() as mp:
-        mp.setattr(driver, "_GRAPH_DEVICES", ())
+        mp.setattr(driver, "_STEPS", collections.OrderedDict())
+        mp.setattr(driver, "_capture", lambda propose, accept, dev: None)
         return sample_chains(*args, **kwargs)
 
 
