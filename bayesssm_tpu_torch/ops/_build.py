@@ -11,9 +11,11 @@ lies on one CUDA device.
 Entries: ``bssm_sweep_sir``, ``bssm_sweep_lgss``, ``bssm_sweep_lgss_mv``
 and ``bssm_sweep_sinusoidal`` (K1 with each model functor, ``sweep.cu``),
 ``bssm_fused_resample`` (K3) and ``bssm_select`` (K2 alone), both
-``resample.cu``, and ``bssm_gillespie`` (K4, ``gillespie.cu``), with
-``*_info`` entries that :func:`occupancy` reads. A functor generated from a user's sweep
-callbacks (``ops/sweep_codegen.py``) is compiled on its own by
+``resample.cu``, ``bssm_gillespie`` (K4, ``gillespie.cu``) and
+``bssm_threefry`` (the threefry draws of ``ops/threefry.py``,
+``threefry.cu``), with ``*_info`` entries that :func:`occupancy` reads.
+A functor generated from a user's sweep callbacks
+(``ops/sweep_codegen.py``) is compiled on its own by
 :func:`build_generated` into ``gen_<hash>.so`` with one entry,
 ``bssm_sweep_gen_<hash>``, the kernel template of ``csrc/sweep.cuh``
 instantiated with it; its launches count under ``bssm_sweep_generated``.
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import pathlib
 import shutil
@@ -52,7 +55,8 @@ from bayesssm_tpu_torch.utils.timing import count, span
 __all__ = ["NVCC_FLAGS", "launches", "reset_launches", "library_loaded",
            "load_library", "build_info", "occupancy", "generated_entry",
            "build_generated", "launch_probe", "launch_sweep", "launch_select",
-           "launch_fused_resample", "launch_gillespie"]
+           "launch_fused_resample", "launch_gillespie", "THREEFRY_FORMS",
+           "launch_threefry"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -66,6 +70,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # Model constants of each sweep entry, after the shared arguments.
 _SWEEP_CONSTS = {
     # inv_nt, s0, i0, unroll, move_step_max
@@ -86,7 +91,16 @@ _ENTRIES = {
     "bssm_fused_resample": [_P] * 11 + [_I] * 5 + [_P],
     # seeds state lam gam out, C N, inv_nt t_end, unroll, stream
     "bssm_gillespie": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I, _P],
+    # keys key_stride data data_stride data_word out, rows n form, lo span,
+    # stream
+    "bssm_threefry": [_P, _L, _P, _L, ctypes.c_uint, _P] + [_I] * 3
+    + [_F] * 2 + [_P],
 }
+# The output forms of bssm_threefry (csrc/threefry.cu).
+THREEFRY_FORMS = {"split": 0, "fold_in": 1, "bits": 2, "uniform": 3,
+                  "normal": 4, "lane_uniform": 5}
+# The forms whose counter is (0, data) a row, not the flat index.
+_DATA_FORMS = ("fold_in", "lane_uniform")
 # Registers per thread and resident blocks per SM (out pointers): K1 with
 # the SIR functor at n lanes, and K4; registers and resident warps per SM
 # of K3 at n lanes and d columns.
@@ -474,4 +488,87 @@ def launch_gillespie(words, state, lam, gam, *, inv_nt, t_end, unroll):
                             _stream(dev))
     _raise_on(rc, "bssm_gillespie")
     launches["bssm_gillespie"] += 1
+    return out
+
+
+def _threefry_rows(keys, form, shape=(), data=None):
+    """The arguments of ``bssm_threefry`` on any device, checked: ``(rows,
+    data_rows, n, out_shape)``, with ``rows [R, 2]`` the int64 key words
+    (each key's two words side by side; a view where one serves),
+    ``data_rows`` the ``[R]`` int64 counter words of ``fold_in`` and
+    ``lane_uniform`` (or fold_in's int), ``n`` the outputs a row and
+    ``out_shape`` the result's shape. There the keys and tensor ``data``
+    broadcast together, as the plain twin's do."""
+    if form not in THREEFRY_FORMS:
+        raise ValueError(f"unknown threefry form {form!r}")
+    if not isinstance(keys, torch.Tensor):
+        raise TypeError("keys must be a tensor of key words")
+    if keys.dtype != torch.int64:
+        raise TypeError(f"key words must be int64 (got {keys.dtype})")
+    if keys.ndim < 1 or keys.shape[-1] != 2:
+        raise ValueError(f"key words must have a trailing axis of 2 (got "
+                         f"shape {tuple(keys.shape)})")
+    lead = tuple(keys.shape[:-1])
+    if form in _DATA_FORMS:
+        if isinstance(data, torch.Tensor):
+            if data.dtype != torch.int64 or data.device != keys.device:
+                raise TypeError(f"{form} data must be int64 on the keys' "
+                                "device")
+            lead = torch.broadcast_shapes(lead, tuple(data.shape))
+            data = data.expand(lead).reshape(-1)
+        elif form == "lane_uniform":
+            raise TypeError("lane_uniform takes a tensor of lanes")
+        else:
+            data = int(data) & 0xFFFFFFFF
+        keys = keys.expand(*lead, 2)
+        shape = ()
+        out_shape = (*lead, 2) if form == "fold_in" else lead
+    else:
+        shape = tuple(int(s) for s in shape)
+        out_shape = (*lead, *shape, 2) if form == "split" else (*lead,
+                                                                 *shape)
+    rows = keys.reshape(-1, 2)
+    if rows.stride(1) != 1:
+        rows = rows.contiguous()
+    n = math.prod(shape)
+    if rows.shape[0] * n >= 2**31:
+        raise ValueError("bssm_threefry takes fewer than 2**31 outputs")
+    return rows, data, n, out_shape
+
+
+def launch_threefry(keys, form, shape=(), *, data=None, lo=0.0, span=1.0):
+    """Launch ``bssm_threefry``: the ``form`` (``THREEFRY_FORMS``) of
+    ``ops/threefry.py`` for every key of ``keys [..., 2]`` (int64 uint32
+    words on a CUDA device) over ``shape``: ``split`` ``[..., *shape, 2]``
+    int64, ``fold_in`` (``data`` an int or an int64 tensor) ``[..., 2]``
+    int64, ``bits`` ``[..., *shape]`` int64, ``uniform`` (on ``[lo, lo +
+    span)``, float32 values) and ``normal`` ``[..., *shape]`` float32, and
+    ``lane_uniform``: float32 uniforms on ``[0, 1)`` at the counters ``(0,
+    data)``, ``data`` an int64 tensor of lanes in ``[0, 2**32)`` that
+    broadcasts against the keys' leading axes. Malformed keys raise before
+    anything is loaded or launched. Each launch counts
+    ``threefry.kernel`` (``utils/timing.py``)."""
+    rows, data, n, out_shape = _threefry_rows(keys, form, shape, data)
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError("launch_threefry takes CUDA tensors only")
+    r = rows.shape[0]
+    dtype = (torch.float32 if form in ("uniform", "normal", "lane_uniform")
+             else torch.int64)
+    out = torch.empty(out_shape, dtype=dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    data_ptr, data_stride, data_word = None, 0, 0
+    if isinstance(data, torch.Tensor):
+        data_ptr, data_stride = data.data_ptr(), data.stride(0)
+    elif data is not None:
+        data_word = data
+    lib = load_library()
+    rc = lib.bssm_threefry(rows.data_ptr(), rows.stride(0), data_ptr,
+                           data_stride, data_word, out.data_ptr(), r, n,
+                           THREEFRY_FORMS[form], float(lo),
+                           float(span), _stream(dev))
+    _raise_on(rc, "bssm_threefry")
+    launches["bssm_threefry"] += 1
+    count("threefry.kernel")
     return out

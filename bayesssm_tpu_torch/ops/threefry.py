@@ -35,6 +35,19 @@ leading axes, so a ``[C, 2]`` batch of chain keys gives ``[C, *shape]``
 draws. Keys and the words the functions return are int64 with every
 value in [0, 2**32); the rounds run on int32 words, whose sums wrap mod
 2**32, in place on the output words (``_threefry_i32``).
+
+Where the draws run follows the keys' device. On a CUDA device
+:func:`split`, :func:`fold_in`, :func:`random_bits`, :func:`uniform`,
+:func:`normal` and :func:`binomial`'s lane uniforms are one launch each of
+the kernel ``csrc/threefry.cu`` (``_build.launch_threefry``), bit for bit
+with the code here, or raise; elsewhere they run the code here, the
+kernel's plain twin. Under ``torch.func.vmap`` (a move written for one
+particle, ``utils/signatures.py::adapt_move_fn``) the launch goes through
+the operator ``bssm::threefry``, whose vmap rule makes a draw one launch
+for the whole batch. Counters (``utils/timing.py``): ``threefry.kernel``, a
+launch of the kernel; ``threefry.plain``, a call that ran the plain twin
+(one of those six on keys off the card). :func:`randint`,
+:func:`binomial` and :class:`LoopKeys` draw through them.
 """
 
 from __future__ import annotations
@@ -44,8 +57,9 @@ import math
 import numpy as np
 import torch
 
+from bayesssm_tpu_torch.ops import _build
 from bayesssm_tpu_torch.ops.rng import MASK32, mul32
-from bayesssm_tpu_torch.utils.timing import host_sync
+from bayesssm_tpu_torch.utils.timing import count, host_sync
 
 __all__ = [
     "threefry2x32",
@@ -146,6 +160,68 @@ def _shape(shape) -> tuple:
         int(s) for s in shape)
 
 
+def _on_card(keys: torch.Tensor) -> bool:
+    """Whether draws from these key words run as the kernel: on a CUDA
+    device."""
+    return keys.device.type == "cuda"
+
+
+_batched = torch._C._functorch.is_batchedtensor
+_LIB = torch.library.Library("bssm", "DEF")
+_LIB.define("threefry(Tensor keys, str form, int[] shape, Tensor? data, "
+            "int data_word, float lo, float span) -> Tensor")
+
+
+def _threefry_op(keys, form, shape, data, data_word, lo, span):
+    """``bssm::threefry``: one ``_build.launch_threefry``, whose ``data``
+    is the tensor ``data`` or else the int ``data_word``."""
+    return _build.launch_threefry(keys, form, tuple(shape),
+                                  data=data_word if data is None else data,
+                                  lo=lo, span=span)
+
+
+def _threefry_vmap(info, in_dims, keys, form, shape, data, data_word, lo,
+                   span):
+    """vmap rule of ``bssm::threefry``: the batch axis goes in front of the
+    leading axes of the key words (and of the data, which broadcast
+    against them from the right), which one launch maps over; the draws
+    come out batched at axis 0."""
+    b = info.batch_size
+
+    def front(x, dim):
+        return x.movedim(dim, 0) if dim is not None else x.expand(b, *x.shape)
+
+    keys = front(keys, in_dims[0])
+    if data is not None:
+        data = front(data, in_dims[3])
+        k, d = keys.ndim - 2, data.ndim - 1
+        keys = keys.reshape(b, *(1,) * (d - k), *keys.shape[1:])
+        data = data.reshape(b, *(1,) * (k - d), *data.shape[1:])
+    return torch.ops.bssm.threefry(keys, form, shape, data, data_word, lo,
+                                   span), 0
+
+
+_LIB.impl("threefry", _threefry_op, "CompositeExplicitAutograd")
+torch.library.register_vmap("bssm::threefry", _threefry_vmap, lib=_LIB)
+
+
+def _kernel(keys: torch.Tensor, form: str, shape=(), data=None, lo=0.0,
+            span=1.0) -> torch.Tensor:
+    """One launch of ``csrc/threefry.cu``; ``data`` is an int, an int64
+    tensor or ``None``. Under vmap (batched keys or data) it goes through
+    ``bssm::threefry`` and its vmap rule; otherwise straight to the
+    launcher, which spares the dispatcher's round trip through Python
+    (~28 µs of host issue a draw on an H100 machine's host)."""
+    word = 0
+    if not isinstance(data, torch.Tensor):
+        word, data = (0 if data is None else int(data) & MASK32), None
+    shape = list(shape)
+    if _batched(keys) or (data is not None and _batched(data)):
+        return torch.ops.bssm.threefry(keys, form, shape, data, word,
+                                       float(lo), float(span))
+    return _threefry_op(keys, form, shape, data, word, lo, span)
+
+
 def _blocks(keys: torch.Tensor, shape: tuple):
     """Threefry of every flat index of ``shape`` under every key, as int32
     words (:func:`_threefry_i32`)."""
@@ -159,6 +235,9 @@ def _blocks(keys: torch.Tensor, shape: tuple):
 
 def split(keys: torch.Tensor, shape=2) -> torch.Tensor:
     """``[..., *shape, 2]`` subkeys (``jax.random.split(key, shape)``)."""
+    if _on_card(keys):
+        return _kernel(keys, "split", _shape(shape))
+    count("threefry.plain")
     b0, b1 = _blocks(keys, _shape(shape))
     return torch.stack([_u32(b0), _u32(b1)], dim=-1)
 
@@ -167,6 +246,11 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for every key. ``data`` is an int
     or an integer tensor that broadcasts against the keys' leading axes:
     ``fold_in(root [2], arange(C))`` gives the ``[C, 2]`` chain keys."""
+    if _on_card(keys):
+        if isinstance(data, torch.Tensor):
+            data = data.to(device=keys.device, dtype=torch.int64)
+        return _kernel(keys, "fold_in", data=data)
+    count("threefry.plain")
     if isinstance(data, torch.Tensor):
         data = data.to(device=keys.device, dtype=torch.int64) & MASK32
     else:
@@ -177,6 +261,9 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
 
 def random_bits(keys: torch.Tensor, shape=()) -> torch.Tensor:
     """``[..., *shape]`` uint32 words in int64 (32-bit ``random_bits``)."""
+    if _on_card(keys):
+        return _kernel(keys, "bits", _shape(shape))
+    count("threefry.plain")
     b0, b1 = _blocks(keys, _shape(shape))
     return _u32(b0 ^ b1)
 
@@ -184,10 +271,19 @@ def random_bits(keys: torch.Tensor, shape=()) -> torch.Tensor:
 def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniforms on ``[minval, maxval)`` (``jax.random.uniform``)."""
-    b0, b1 = _blocks(keys, _shape(shape))
-    floats = _to_uniform(b0 ^ b1)
     lo = np.float32(minval)
     span = np.float32(maxval) - lo
+    if _on_card(keys):
+        return _kernel(keys, "uniform", _shape(shape), lo=float(lo),
+                       span=float(span))
+    count("threefry.plain")
+    return _uniform_plain(keys, _shape(shape), lo, span)
+
+
+def _uniform_plain(keys, shape, lo, span):
+    """The plain twin of :func:`uniform` at float32 ``lo`` and ``span``."""
+    b0, b1 = _blocks(keys, shape)
+    floats = _to_uniform(b0 ^ b1)
     if span == 1.0 and lo == 0.0:
         return floats
     return torch.clamp_min(_fma(floats, float(span), float(lo)), float(lo))
@@ -255,7 +351,11 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
 
 def normal(keys: torch.Tensor, shape=()) -> torch.Tensor:
     """float32 standard normals (``jax.random.normal``)."""
-    u = uniform(keys, shape, _NORMAL_LO, 1.0)
+    if _on_card(keys):
+        return _kernel(keys, "normal", _shape(shape))
+    count("threefry.plain")
+    lo = np.float32(_NORMAL_LO)
+    u = _uniform_plain(keys, _shape(shape), lo, np.float32(1.0) - lo)
     return _SQRT2_F32 * erfinv(u)
 
 
@@ -340,7 +440,12 @@ def _stirling_approx_tail(k: torch.Tensor) -> torch.Tensor:
 
 def _lane_uniforms(sub: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
     """``uniform(sub, shape)[lane]``: uniforms drawn with subkeys
-    ``sub [..., 2]`` at flat lane indices ``lanes`` (broadcast together)."""
+    ``sub [..., 2]`` at flat lane indices ``lanes`` (int64 in [0, 2**32),
+    broadcast together): on a CUDA device one launch of the kernel, whose
+    counter ``(0, lane)`` is the plain twin's ``(lane >> 32, lane)``."""
+    if _on_card(sub):
+        return _kernel(sub, "lane_uniform", data=lanes)
+    count("threefry.plain")
     b0, b1 = _threefry_i32(sub[..., 0], sub[..., 1], lanes >> 32,
                            lanes & MASK32)
     return _to_uniform(b0 ^ b1)

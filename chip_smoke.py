@@ -165,7 +165,15 @@ Phases:
     ``examples/torch_stochastic_sir.py`` at its own settings (K4 and K3)
     and ``examples/torch_stochastic_volatility.py`` cut as
     ``EXAMPLE_RUNS`` says (K3): finite samples, acceptance strictly inside
-    (0, 1), means, SDs and ESS printed.
+    (0, 1), means, SDs and ESS printed;
+30. (run after phase 3) the threefry kernel (``csrc/threefry.cu``) bit
+    for bit with its plain twin on CUDA tensors (``ops/threefry.py`` with
+    ``_on_card`` off) at the engine's shapes: ``normal`` over 4096 x 1024
+    (the sinusoidal engine's draws), ``split`` 4096 x (20, 5) (its day
+    keys), ``uniform`` at the default and a (minval, maxval) pair,
+    ``random_bits`` and ``fold_in``; the kernel's and the plain twin's ms
+    for the first two by CUDA-graph replay and issued from the host, and
+    the kernel's bound (``THREEFRY_INSTR``).
 
 Each kernel's bound is the larger of the bytes it must move over the
 card's memory rate and its lane instructions over the card's rate for
@@ -213,6 +221,9 @@ RESAMPLE_SOURCE = "bayesssm_tpu_torch/csrc/resample.cu"
 RESAMPLE_REPLACES = "bayesssm_tpu/ops/resampling_pallas.py:60"
 GILLESPIE_SOURCE = "bayesssm_tpu_torch/csrc/gillespie.cu"
 GILLESPIE_REPLACES = "bayesssm_tpu/ops/gillespie_pallas.py:71"
+THREEFRY_SOURCE = "bayesssm_tpu_torch/csrc/threefry.cu"
+THREEFRY_REPLACES = ("none: jax.random's threefry as XLA lowers it "
+                     "(jax/_src/prng.py::_threefry2x32_lowering)")
 SIN_REPLACES = "bayesssm_tpu/models/sinusoidal.py:55"
 # K1 with a user's callbacks: the JAX builder's public escape hatch.
 GEN_REPLACES = "bayesssm_tpu/ops/sweep_builder.py:146"
@@ -269,9 +280,11 @@ SM_CLOCKS_S = 67e12 / (2 * 128)
 # C++ Programming Guide's throughput table): four schedulers issue 32
 # lanes each (and 128 float32 adds or multiplies run), 64 integer adds,
 # logic ops, shifts and compares, 16 MUFU operations (reciprocal, exp2,
-# log2) or conversions. The kernels are built with --fmad=false, so a
-# float32 add or multiply is one instruction, not half of one FMA.
-ISSUE_PER_SM, ALU_PER_SM, XU_PER_SM = 128, 64, 16
+# log2) or conversions, and, on a pipe of their own, 64 float64 fmas (the
+# H100 SXM's 33.5 TFLOP/s in float64 outside the tensor cores). The
+# kernels are built with --fmad=false, so a float32 add or multiply is one
+# instruction, not half of one FMA.
+ISSUE_PER_SM, ALU_PER_SM, XU_PER_SM, FP64_PER_SM = 128, 64, 16, 64
 # Lane instructions per Gillespie event (models.cuh::sir_attempt), counted from
 # the source as (all, integer ALU, MUFU or conversion): two counter draws
 # (14 each: counter add and multiply, key xor, lowbias32's three shift-xor
@@ -292,6 +305,23 @@ GAUSS_WEIGHT_INSTR = (35, 0, 3)
 # one MUFU; sqrtf, an IEEE divide or reciprocal ~8 with one MUFU; sinf and
 # cosf as SINF_INSTR; powf ~40; NaN-propagating max/min/clamp 3; every
 # other op (add, multiply, compare, select, a host int) 1.
+# Lane instructions of one threefry draw (csrc/threefry.cu), counted from
+# the source as above as (all, integer ALU, MUFU or conversion, float64
+# fma), each float32 <-> float64 conversion one of the 16: the block
+# function (20 rounds of an add, a funnel shift and an xor; 5 key
+# injections of 3 adds; the schedule's 2 xors; the counter and the
+# output's xor: ~80, all integer); a uniform's fill, one float64 fma with
+# 3 conversions and its floor (~8); erfinv's log1pf (~20, one MUFU), sqrtf
+# or a subtract (~8, one MUFU), 8 float64 fmas with 2 conversions and a
+# select each (32) and ~6 compares and multiplies.
+THREEFRY_BLOCK_INSTR = (80, 80, 0, 0)
+THREEFRY_UNIFORM_INSTR = (8, 0, 3, 1)
+THREEFRY_ERFINV_INSTR = (66, 0, 18, 8)
+THREEFRY_INSTR = {
+    "split": THREEFRY_BLOCK_INSTR,
+    "normal": tuple(map(sum, zip(THREEFRY_BLOCK_INSTR, THREEFRY_UNIFORM_INSTR,
+                                 THREEFRY_ERFINV_INSTR))),
+}
 IR_PRICE = {"uniform": (14, 12, 1), "normal": NORMAL_INSTR,
             "exp": (20, 0, 1), "log": (20, 0, 1), "log1p": (20, 0, 1),
             "expm1": (20, 0, 1), "tanh": (20, 0, 1), "sqrt": (8, 0, 1),
@@ -389,12 +419,14 @@ def graph_ms(fn, reps: int) -> float:
 def bound(bytes_moved: float, *work):
     """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
     and the lane instructions over the card's rate for their pipe. Each
-    ``work`` item is ``(count, (all, alu, xu))``: ``count`` times that many
-    lane instructions of each kind."""
+    ``work`` item is ``(count, (all, alu, xu[, fp64]))``: ``count`` times
+    that many lane instructions of each kind (no float64 fma where
+    ``fp64`` is left out)."""
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
-    issue, alu, xu = (sum(k * w[j] for k, w in work) for j in range(3))
-    t_ops = max(issue / ISSUE_PER_SM, alu / ALU_PER_SM,
-                xu / XU_PER_SM) / SM_CLOCKS_S * 1e3
+    issue, alu, xu, fp64 = (sum(k * (w[j] if j < len(w) else 0)
+                                for k, w in work) for j in range(4))
+    t_ops = max(issue / ISSUE_PER_SM, alu / ALU_PER_SM, xu / XU_PER_SM,
+                fp64 / FP64_PER_SM) / SM_CLOCKS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -622,8 +654,10 @@ def run_mh(dev, what, pf, steps, per_step, model="sir"):
     """One warm-up MH step, then ``steps`` timed steps with the launch
     counts set to 0 just before and read just after, from
     ``bench_torch.sampler(model)``'s state at 4096 chains; ``per_step``
-    maps a kernel to the launches each step must make. Returns the counts,
-    the warm state, priors and transforms."""
+    maps a kernel to the launches each step must make (``None``: any
+    number, where the draws follow the data); no draw may run threefry's
+    plain twin (``threefry_counts``). Returns the counts, the warm state,
+    priors and transforms."""
     from bayesssm_tpu_torch.ops import _build
     from bayesssm_tpu_torch.pmmh.driver import sample_chains
 
@@ -632,17 +666,20 @@ def run_mh(dev, what, pf, steps, per_step, model="sir"):
     warm = sample_chains(pf, state, 2, 1, prior_fns, transforms)
     torch.cuda.synchronize()
     _build.reset_launches()
+    before = threefry_counts()
     t0 = time.perf_counter()
     out = sample_chains(pf, warm.state, steps + 1, 0, prior_fns, transforms)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(_build.launches)
+    expect_threefry_counts(what, counts, before)
     acc = float(out.acceptance_rate.mean())
     say(what, steps=steps, seconds=seconds,
         samples_per_s=CHAINS * steps / seconds, acceptance=acc,
         launches={k: v for k, v in counts.items() if v})
     for name in counts:
-        if counts[name] != per_step.get(name, 0) * steps:
+        want = per_step.get(name, 0)
+        if want is not None and counts[name] != want * steps:
             raise AssertionError(f"{what}: {name} launched {counts[name]} "
                                  f"times in {steps} steps")
     if not np.isfinite(out.samples).all() or not 0.0 < acc < 1.0:
@@ -906,6 +943,76 @@ def phase_gillespie(dev, what="gillespie", n=PARTICLES):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+@contextlib.contextmanager
+def plain_threefry():
+    """``ops/threefry.py``'s draws by its plain twin on every device."""
+    from bayesssm_tpu_torch.ops import threefry
+
+    on_card = threefry._on_card
+    threefry._on_card = lambda keys: False
+    try:
+        yield
+    finally:
+        threefry._on_card = on_card
+
+
+def phase_threefry(dev):
+    """Phase 30: the threefry kernel against its plain twin, bitwise, at
+    the engine's shapes, and its time (module docstring)."""
+    from bayesssm_tpu_torch.ops import _build, threefry
+
+    keys = words_for(CHAINS, 30, dev)
+    day_keys = threefry.split(keys, (20, 5))[:, 3, 2]   # a strided view
+    draws = {
+        "normal": lambda: threefry.normal(keys, (1024,)),
+        "split": lambda: threefry.split(keys, (20, 5)),
+        "uniform": lambda: threefry.uniform(day_keys, (1000,)),
+        "uniform_pair": lambda: threefry.uniform(day_keys, (1000,), -2.5,
+                                                 0.75),
+        "random_bits": lambda: threefry.random_bits(day_keys, (999,)),
+        "fold_in": lambda: threefry.fold_in(
+            keys[0], torch.arange(CHAINS, device=dev)),
+    }
+    row = None
+    for name, fn in draws.items():
+        before = _build.launches["bssm_threefry"]
+        got = fn()
+        torch.cuda.synchronize()
+        if _build.launches["bssm_threefry"] != before + 1:
+            raise AssertionError(f"threefry {name}: not one launch")
+        with plain_threefry():
+            want = fn()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"threefry {name}: the kernel differs from "
+                                 "its plain twin")
+        if name not in THREEFRY_INSTR:
+            say("threefry", draw=name, shape=tuple(got.shape),
+                bitwise_equal=True)
+            continue
+        kernel_ms = graph_ms(fn, 50)
+        with plain_threefry():
+            plain_ms = graph_ms(fn, 5)
+            plain_issued_ms = cuda_ms(fn, 5)
+            plain_ops = device_ops(fn)[1]
+        outputs = got.numel() // (2 if name == "split" else 1)
+        # Reads one key a row; writes the draws (int64 word pairs or
+        # float32 values).
+        bound_ms, bound_by = bound(16 * CHAINS + got.numel() *
+                                   got.element_size(),
+                                   (outputs, THREEFRY_INSTR[name]))
+        say("threefry", draw=name, shape=tuple(got.shape),
+            bitwise_equal=True, kernel_ms=kernel_ms,
+            kernel_ms_host_issued=cuda_ms(fn, 50), plain_ms=plain_ms,
+            plain_ms_host_issued=plain_issued_ms, plain_device_ops=plain_ops,
+            bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / kernel_ms)
+        if name == "normal":
+            row = dict(max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=None)
+    return row
+
+
 def phase_gillespie_engine_days(dev):
     """K4 on the states the engine path hands it (``engine_day_states``):
     each day bitwise against its plain version, and the ten launches timed
@@ -1008,7 +1115,8 @@ def phase_engine_path(dev):
     pf = engine_pf(dev)
     counts, state, prior_fns, transforms = run_mh(
         dev, "engine", pf, 32,
-        {"bssm_fused_resample": 10, "bssm_gillespie": 10})
+        {"bssm_fused_resample": 10, "bssm_gillespie": 10,
+         "bssm_threefry": 2})
     plain_rate(dev, "engine", engine_pf(dev, plain=True), state, prior_fns,
                transforms, 2)
     return counts, pf, state, prior_fns, transforms
@@ -1017,9 +1125,11 @@ def phase_engine_path(dev):
 def phase_filters_mh(dev):
     """MH samples/s of the APF and the RMPF on both paths (phase 14), the
     port of ``bench.py --config apf|rmpf`` with either ``--transition``:
-    the engine's APF launches K4 and K3 twice a day, its RMPF once."""
+    the engine's APF launches K4 and K3 twice a day, its RMPF once; the
+    threefry kernel draws a filter's two key splits and each day's RMPF
+    move (a split, randint's split and two random-bit draws, a uniform)."""
     counts = []
-    for algorithm, per_day in (("APF", 2), ("RMPF", 1)):
+    for algorithm, per_day, draws in (("APF", 2, 2), ("RMPF", 1, 52)):
         counts.append(run_mh(dev, f"sweep_{algorithm.lower()}",
                              bench_torch.sir_pf(
                                  bench_torch.observations("bpf"), PARTICLES,
@@ -1029,7 +1139,7 @@ def phase_filters_mh(dev):
             dev, f"engine_{algorithm.lower()}",
             engine_pf(dev, algorithm=algorithm), 32,
             {"bssm_fused_resample": 10 * per_day,
-             "bssm_gillespie": 10 * per_day})[0])
+             "bssm_gillespie": 10 * per_day, "bssm_threefry": draws})[0])
     return counts
 
 
@@ -1054,8 +1164,9 @@ def run_pmmh(what, y, fns, log_priors, init, transform, control, m,
     counts set to 0 just before and read just after: prints the timings,
     tuned counts, lane bound, acceptance, launches, and each parameter's
     mean, ESS and R-hat; fails on samples that are not finite, an
-    acceptance outside (0, 1) or a count outside [50, 1000]. Returns the
-    counts and the output."""
+    acceptance outside (0, 1), a count outside [50, 1000] or a draw by
+    threefry's plain twin (``expect_threefry_counts``). Returns the counts
+    and the output."""
     import warnings
 
     from bayesssm_tpu_torch import pmmh
@@ -1064,6 +1175,7 @@ def run_pmmh(what, y, fns, log_priors, init, transform, control, m,
 
     chains = CHAINS
     _build.reset_launches()
+    before = threefry_counts()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")   # ESS/R-hat advice on short runs
         out = pmmh(pf_wrapper, y, m, *fns, log_priors, init, burn_in,
@@ -1071,6 +1183,7 @@ def run_pmmh(what, y, fns, log_priors, init, transform, control, m,
                    tune_control=control, pf_impl=pf_impl,
                    print_summary=False, **extra)
     counts = dict(_build.launches)
+    expect_threefry_counts(f"pmmh ({what})", counts, before)
     t = out.timings
     tn = out.target_n
     acc = float(out.acceptance_rate.mean())
@@ -1107,13 +1220,80 @@ def run_pmmh(what, y, fns, log_priors, init, transform, control, m,
     return counts, out
 
 
-def expect_launches(what, counts, launched, not_launched=()):
+def threefry_counts():
+    """The port's counters ``threefry.kernel`` and ``threefry.plain`` so
+    far on this thread (``utils/timing.py``)."""
+    from bayesssm_tpu_torch.utils import timing
+
+    c = timing._tls.counters
+    return c.get("threefry.kernel", 0), c.get("threefry.plain", 0)
+
+
+def expect_threefry_counts(what, counts, before):
+    """Fail unless, since ``before`` (``threefry_counts``), the kernel's
+    counter moved by its launches in ``counts`` and no draw ran the plain
+    twin, as none may on the card."""
+    kernel, plain = (a - b for a, b in zip(threefry_counts(), before))
+    if (kernel, plain) != (counts["bssm_threefry"], 0):
+        raise AssertionError(
+            f"{what}: threefry.kernel {kernel} and threefry.plain {plain} "
+            f"for {counts['bssm_threefry']} launches")
+
+
+# Launches of the threefry kernel inside the pilot's re-propose loop
+# (pmmh/tuning.py::_propose_until_valid), whose tries follow the data;
+# set to 0 with the launch counts (install_proposal_tally).
+PROPOSAL_DRAWS = [0]
+
+
+def install_proposal_tally():
+    """Count in ``PROPOSAL_DRAWS`` the threefry launches of the pilot's
+    re-propose loop, and set it to 0 with ``_build.reset_launches``."""
+    from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.pmmh import tuning
+
+    propose, reset = tuning._propose_until_valid, _build.reset_launches
+
+    def tallied(*args, **kw):
+        before = _build.launches["bssm_threefry"]
+        try:
+            return propose(*args, **kw)
+        finally:
+            PROPOSAL_DRAWS[0] += _build.launches["bssm_threefry"] - before
+
+    def reset_both():
+        reset()
+        PROPOSAL_DRAWS[0] = 0
+
+    tuning._propose_until_valid = tallied
+    _build.reset_launches = reset_both
+
+
+def pilot_draws(pilot_m, calls=1):
+    """Threefry launches of ``calls`` tuned ``pmmh()`` calls whose filter
+    draws none (K1), besides the re-propose loop's: the chain keys'
+    fold_in, the pilot's first split, a split into four and the acceptance
+    uniform each further pilot step, the variance run's split and the main
+    chains' split."""
+    return calls * (4 + 2 * (pilot_m - 1))
+
+
+def expect_launches(what, counts, launched, not_launched=(), threefry=None):
     """Fail unless every kernel of ``launched`` ran and none of
-    ``not_launched`` did (``not_launched="others"``: no other kernel)."""
+    ``not_launched`` did (``not_launched="others"``: no other kernel but
+    the threefry kernel), and the threefry kernel launched ``threefry``
+    times besides the pilot's re-propose draws (``PROPOSAL_DRAWS``; read
+    right after the run); ``None``: any number, as where an engine
+    filter's draws follow its calls."""
     if not_launched == "others":
-        not_launched = [k for k in counts if k not in launched]
+        not_launched = [k for k in counts
+                        if k not in launched and k != "bssm_threefry"]
     bad = ([k for k in launched if counts[k] == 0]
            + [k for k in not_launched if counts[k] != 0])
+    if (threefry is not None
+            and counts["bssm_threefry"] - PROPOSAL_DRAWS[0] != threefry):
+        bad.append(f"bssm_threefry: {threefry} + {PROPOSAL_DRAWS[0]} "
+                   "re-propose draws")
     if bad:
         raise AssertionError(f"{what}: launches {counts} (off: {bad})")
 
@@ -1157,7 +1337,8 @@ def phase_pmmh(path, control, pf_wrapper="bootstrap_filter", m=PMMH_M,
         pf_wrapper=pf_wrapper, **kw)
     k34 = ("bssm_fused_resample", "bssm_gillespie")
     if pf_impl is not None:
-        expect_launches(f"pmmh {path}", counts, ["bssm_sweep_sir"], k34)
+        expect_launches(f"pmmh {path}", counts, ["bssm_sweep_sir"], k34,
+                        threefry=pilot_draws(control.pilot_m))
     else:
         expect_launches(f"pmmh {path}", counts, k34, ["bssm_sweep_sir"])
     return counts, out
@@ -1266,7 +1447,8 @@ def phase_lgss_mv(dev):
                                 resample_algorithm="SISR")
     torch.cuda.synchronize()
     counts = dict(_build.launches)
-    expect_launches("lgss_mv path", counts, ["bssm_sweep_lgss_mv"], "others")
+    expect_launches("lgss_mv path", counts, ["bssm_sweep_lgss_mv"], "others",
+                    threefry=0)
     lls = ll.double().cpu().numpy()
     truth = kalman_loglik_mv(y, a, (1.0, 0.5), sx, sy, p0=1.0)
     se = lls.std() / np.sqrt(c)
@@ -1285,7 +1467,8 @@ def phase_sinusoidal_mh(dev):
     counts = []
     for path, steps, per_step in (
             ("sweep", 64, {"bssm_sweep_sinusoidal": 1}),
-            ("engine", 32, {"bssm_fused_resample": len(y)})):
+            ("engine", 32, {"bssm_fused_resample": len(y),
+                            "bssm_threefry": 2 + 1 + len(y)})):
         pf = bench_torch.sinusoidal_pf(y, PARTICLES, path)
         run = run_mh(dev, f"sinusoidal_{path}", pf, steps, per_step,
                      model="sinusoidal")
@@ -1320,7 +1503,9 @@ def phase_readme_pmmh(control):
             pf_impl=sinusoidal_sweep_pf_impl() if sweep else None)
         expect_launches(f"readme {path}", run_counts,
                         ["bssm_sweep_sinusoidal" if sweep
-                         else "bssm_fused_resample"], "others")
+                         else "bssm_fused_resample"], "others",
+                        threefry=(pilot_draws(control.pilot_m) if sweep
+                                  else None))
         counts.append(run_counts)
     return counts
 
@@ -1348,7 +1533,8 @@ def phase_sv_tauleap(dev, control):
     y_sir = bench_torch.observations("bpf")
     pf = bench_torch.sir_pf(y_sir, PARTICLES, "BPF", "tauleap")
     tau_counts = run_mh(dev, "tauleap_engine", pf, 8,
-                        {"bssm_fused_resample": len(y_sir)})[0]
+                        {"bssm_fused_resample": len(y_sir),
+                         "bssm_threefry": None})[0]
     return [sv_counts, tau_counts], sv_out
 
 
@@ -1492,7 +1678,8 @@ def phase_generated(dev, control, engine_sv):
         {"phi": 0.95, "sigma": 0.3, "mu": -1.0}, transform, control, 64, 16,
         "T = 50 (simulate_sv's default), m = 64, burn_in = 16",
         pf_impl=ex.sv_pf_impl())
-    expect_launches("pmmh sv sweep", counts, [entry], "others")
+    expect_launches("pmmh sv sweep", counts, [entry], "others",
+                    threefry=pilot_draws(control.pilot_m))
     t = out.timings
     say("generated_pmmh", sweep_samples_per_s=CHAINS * 63 / t["sampling"],
         sweep_tuning_s=t["tuning"],
@@ -1691,9 +1878,11 @@ def phase_checkpoint(control):
     all_counts = []
     for path, m, burn_in, every, pilot in CHECKPOINT_RUNS:
         tune = control if pilot is None else default_tune_control(**pilot)
-        # Launches of one MH step: K1 once, or K3 and K4 once a day.
+        # Launches of one MH step: K1 once, or K3 and K4 once a day and
+        # the threefry kernel for the filter's two key splits.
         per_step = ({"bssm_sweep_sir": 1} if path == "sweep" else
-                    {"bssm_fused_resample": len(y), "bssm_gillespie": len(y)})
+                    {"bssm_fused_resample": len(y), "bssm_gillespie": len(y),
+                     "bssm_threefry": 2})
         kernels = list(per_step)
 
         def run(m_run, **kw):
@@ -1709,7 +1898,11 @@ def phase_checkpoint(control):
                            print_summary=False, **kw)
             counts = dict(_build.launches)
             all_counts.append(counts)
-            expect_launches(f"checkpoint {path}", counts, kernels, "others")
+            # K1 draws nothing; a resumed run draws its chain keys alone.
+            expect_launches(f"checkpoint {path}", counts, kernels, "others",
+                            threefry=None if path == "engine" else
+                            1 if kw.get("resume") else
+                            pilot_draws(tune.pilot_m))
             return out, counts
 
         with tempfile.TemporaryDirectory() as tmp:
@@ -1736,9 +1929,10 @@ def phase_checkpoint(control):
             write_s = (time.perf_counter() - t0) / 3
             size = ck_b.stat().st_size
         # The resumed run tunes nothing: its launches are those of its
-        # m - m // 2 MH steps.
+        # m - m // 2 MH steps and the fold_in of its chain keys.
         resumed_ok = "tuning" not in c.timings and all(
             c_counts[k] == per_step.get(k, 0) * (m - m // 2)
+            + (k == "bssm_threefry")
             for k in c_counts)
         say("checkpoint", path=path, chains=CHAINS, m=m, every=every,
             pilot=pilot or "phase 11's",
@@ -2177,28 +2371,33 @@ def phase_gloo_two_ranks(dev, control, rmpf):
 # Phase 28: bench_torch.py's runs, as (arguments, launches a filter call):
 # bench.py's default at full width on both SIR routes, then --quick for the
 # other configurations and for tau-leaping. --config pmmh runs pmmh() four
-# times; its launches are only checked to route through K1 alone.
+# times; its launches are checked to route through K1 alone, with the
+# threefry draws of its keys and pilots. None: any number (tau-leaping's
+# binomial loops split their keys and draw as the data asks). No run may
+# draw by threefry's plain twin.
 BENCH_RUNS = (
     ([], {"bssm_sweep_sir": 1}),
     (["--transition", "gillespie_pallas"],
-     {"bssm_gillespie": 10, "bssm_fused_resample": 10}),
+     {"bssm_gillespie": 10, "bssm_fused_resample": 10, "bssm_threefry": 2}),
     (["--quick", "--config", "apf"], {"bssm_sweep_sir": 1}),
     (["--quick", "--config", "rmpf"], {"bssm_sweep_sir": 1}),
     (["--quick", "--config", "sinusoidal"], {"bssm_sweep_sinusoidal": 1}),
     (["--quick", "--config", "pmmh"], None),
-    (["--quick", "--transition", "tauleap"], {"bssm_fused_resample": 10}),
+    (["--quick", "--transition", "tauleap"],
+     {"bssm_fused_resample": 10, "bssm_threefry": None}),
 )
 # Phase 29: (example, arguments of its main(), its pilot's
 # default_tune_control arguments or None for the example's own, the
-# kernels it must launch). The README call (3.8-7.6 s) and the SIR
-# vignette (15.9-26.3 s) run their own settings. The SV example is
+# kernels it must launch). The README call (3.8-7.6 s; its own pilot,
+# default_tune_control(pilot_m=200), spelled out for its threefry count)
+# and the SIR vignette (15.9-26.3 s) run their own settings. The SV example is
 # host-bound on the engine at T = 100, 0.2-0.5 s an MH or pilot step at 2
 # chains: at its own m 500 and pilot_m 500 it took 319.9 s
 # (scripts/torch_bench_examples.py), at 200 and 200 here 189.1 s (H100
 # 80GB HBM3, 700 W). It is cut to m 500 -> 50, burn_in 100 -> 10,
 # pilot_m 500 -> 50 and pilot_burn_in 100 -> 10.
 EXAMPLE_RUNS = (
-    ("torch_sinusoidal_readme", dict(fused=True), None,
+    ("torch_sinusoidal_readme", dict(fused=True), dict(pilot_m=200),
      ["bssm_sweep_sinusoidal"]),
     ("torch_stochastic_sir", {}, None,
      ["bssm_gillespie", "bssm_fused_resample"]),
@@ -2221,10 +2420,12 @@ def phase_bench_entry(smi):
     for argv, per_call in BENCH_RUNS:
         args = bench_torch.parse_args(argv)
         _build.reset_launches()
+        before = threefry_counts()
         t0 = time.perf_counter()
         rec = bench_torch.main(argv)
         seconds = time.perf_counter() - t0
         run = dict(_build.launches)
+        expect_threefry_counts(f"bench_torch {argv}", run, before)
         counts.append(run)
         say("bench_entry", argv=" ".join(argv) or "(defaults)",
             record=json.dumps(rec), seconds=f"{seconds:.2f}",
@@ -2236,11 +2437,13 @@ def phase_bench_entry(smi):
             raise AssertionError(f"bench_torch {argv}: record {rec}")
         if per_call is None:
             expect_launches(f"bench_torch {argv}", run, ["bssm_sweep_sir"],
-                            "others")
+                            "others", threefry=pilot_draws(
+                                bench_torch.PMMH_PILOT["pilot_m"], 4))
             continue
         filter_calls = 1 + args.steps * (1 + args.reps * args.calls)
         for name in run:
-            if run[name] != per_call.get(name, 0) * filter_calls:
+            want = per_call.get(name, 0)
+            if want is not None and run[name] != want * filter_calls:
                 raise AssertionError(
                     f"bench_torch {argv}: {name} launched {run[name]} "
                     f"times in {filter_calls} filter calls")
@@ -2272,7 +2475,10 @@ def phase_examples(smi):
         seconds = time.perf_counter() - t0
         run = dict(_build.launches)
         counts.append(run)
-        expect_launches(name, run, kernels, "others")
+        # A sweep (K1) draws nothing; an engine filter draws each call.
+        expect_launches(name, run, kernels, "others", threefry=(
+            pilot_draws(pilot["pilot_m"])
+            if kernels[0].startswith("bssm_sweep") else None))
         summ = out.summary()
         samples = np.stack(list(out.theta_chain.values()))
         acc = out.acceptance_rate
@@ -2400,7 +2606,9 @@ def main() -> int:
         say("build", kernel=name, **occ)
 
     main_counts = []   # the launch counts of every path run
+    install_proposal_tally()
     select_row = phase_select(dev)
+    threefry_row = phase_threefry(dev)
     phase_lgss(dev)
     sweep_row = phase_sir(dev)
     run_counts, main_pf, sweep_state, prior_fns, transforms = (
@@ -2488,7 +2696,9 @@ def main() -> int:
             ("bssm_fused_resample", RESAMPLE_SOURCE, RESAMPLE_REPLACES,
              total["bssm_fused_resample"], k3_row),
             ("bssm_gillespie", GILLESPIE_SOURCE, GILLESPIE_REPLACES,
-             total["bssm_gillespie"], k4_row))
+             total["bssm_gillespie"], k4_row),
+            ("bssm_threefry", THREEFRY_SOURCE, THREEFRY_REPLACES,
+             total["bssm_threefry"], threefry_row))
     print(json.dumps({"kernels": [
         {"name": name, "route": ROUTE, "source": source, "replaces": replaces,
          "launches": launches, **row}

@@ -564,8 +564,9 @@ def test_lgss_mv_kernel_bitwise(dev, gaps, n):
 
 def test_sinusoidal_engine_takes_k3_every_day(dev):
     """The README model through the engine on the card: the fused weight
-    step (K3) every day, no other kernel, and the chains of its plain
-    version on the CPU."""
+    step (K3) every day, the threefry kernel for the two key splits, the
+    initial normals and each day's normals, no other kernel, and the
+    chains of its plain version on the CPU."""
     from bayesssm_tpu_torch.filters import bootstrap_filter
     from bayesssm_tpu_torch.models.sinusoidal import (
         simulate_sinusoidal,
@@ -580,7 +581,8 @@ def test_sinusoidal_engine_takes_k3_every_day(dev):
     res = bootstrap_filter(words, y, 128, *fns, theta=theta,
                            return_particles=False)
     assert _build.launches["bssm_fused_resample"] == 8
-    assert sum(_build.launches.values()) == 8
+    assert _build.launches["bssm_threefry"] == 2 + 1 + 8
+    assert sum(_build.launches.values()) == 8 + 11
     cpu = bootstrap_filter(words.cpu(), y, 128, *fns, theta=theta,
                            use_fused="interpret-inkernel",
                            return_particles=False)

@@ -238,8 +238,12 @@ def test_sample_chains_counts_its_steps_and_the_host_waits_of_a_cpu_run(
     (call,) = timing.recent_calls()
     assert call["root"] == "sample_chains"
     # Four transform calls a step: the masks are built once, then reused.
+    # Each of the 5 filters draws by threefry's plain twin on the CPU: two
+    # key splits, the initial normals, and each day's normals and
+    # resampling uniforms.
     assert call["counters"] == {"mh_steps": 4, "transform_consts.build": 1,
-                                "transform_consts.hit": 15}
+                                "transform_consts.hit": 15,
+                                "threefry.plain": 5 * (3 + 2 * len(y))}
     assert call["spans"]["sample_chains/mh_step"]["count"] == 4
     assert call["spans"]["sample_chains/filter"]["count"] == 1
     assert call["spans"]["sample_chains/mh_step/filter"]["count"] == 4
