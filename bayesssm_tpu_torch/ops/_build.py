@@ -31,7 +31,9 @@ and every kernel is held to its plain version bit for bit.
 
 Every launcher adds one to ``launches[entry]`` when it launches its
 kernel, and nowhere else. Counters of ``utils/timing.py``: a sweep launch
-adds ``C * N * T`` to ``sweep.lane_days``; a generated unit's first use in
+adds ``C * N * T`` to ``sweep.lane_days`` and ``C * N`` times its
+transitions before the weight stages (the gaps' sum, ``T`` without a gap
+table) to ``sweep.lane_transitions``; a generated unit's first use in
 a process, inside the span ``load_generated``, counts ``generated.build``
 when ``nvcc`` ran and ``generated.load`` when its library was already in
 ``build/``.
@@ -342,12 +344,13 @@ def _seeds_i32(words: torch.Tensor) -> torch.Tensor:
 
 
 def launch_sweep(kernel, words, ys, theta, alive, thr, n, *, d, mode,
-                 systematic, algorithm=0, gap_table=None):
+                 systematic, algorithm=0, gap_table=None, transitions=None):
     """Launch ``kernel.entry`` (or, for a ``kernel.source``, the generated
     functor's entry) for ``C`` chains of ``n`` lanes; ``algorithm``
     0/1/2 is BPF/APF/RMPF, ``gap_table`` an int32 ``[2, T]`` tensor on the
     launch's device holding the per-observation transition counts and
-    their running sum (``None`` for one transition a day).
+    their running sum (``None`` for one transition a day), and
+    ``transitions`` the counts' sum, known on the host (``T`` if ``None``).
 
     Returns ``(loglike [C], state_est [C, T+1, d])``.
     """
@@ -384,6 +387,8 @@ def launch_sweep(kernel, words, ys, theta, alive, thr, n, *, d, mode,
     _raise_on(rc, entry)
     launches[key] += 1
     count("sweep.lane_days", c * n * t)
+    count("sweep.lane_transitions", c * n * (t if transitions is None
+                                             else int(transitions)))
     return ll, est
 
 

@@ -267,6 +267,8 @@ class SweepOp:
                     systematic=self.method == "systematic",
                     algorithm=_ALGORITHM[self.algorithm],
                     gap_table=self._gap_table(args[2].device),
+                    transitions=None if self.times is None
+                    else self.times[-1],
                 )
         return ll, self._shape_est(est)
 

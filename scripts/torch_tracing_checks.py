@@ -15,8 +15,9 @@ The set-up has captured the MH step's CUDA graphs, so that call replays
 them and captures nothing; a second call after the cached graphs are
 dropped (``recapture``) captures them again, and its wait for the capture
 counts too. Prints one JSON line a cell, the sites with their counts
-first, and the call's ``sweep.lane_days`` (chains x lanes x days its K1
-launches cover).
+first, the call's ``sweep.lane_days`` (chains x lanes x days its K1
+launches cover) and ``sweep.lane_transitions`` (chains x lanes x the
+transitions before the weight stages).
 
 ``views``: for each sampling cell, ``--calls`` calls of its shape timed
 both on the benchmark's host clock (``drivers/sample_loop.py``: the
@@ -52,7 +53,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 CELLS = ("sir.sweep", "sir.engine", "sinusoidal.engine", "sir.pmmh",
-         "sv.sweep")
+         "sv.sweep", "lv.sweep")
 PACKAGES = ("bayesssm_tpu_torch", "benchmark")
 
 
@@ -123,6 +124,7 @@ def _debug_call(loop) -> dict:
                 mh_steps=counters.get("mh_steps", 0),
                 graph_steps=counters.get("mh_graph.step", 0),
                 lane_days=counters.get("sweep.lane_days", 0),
+                lane_transitions=counters.get("sweep.lane_transitions", 0),
                 match=seen == counters.get("host_sync", 0),
                 call_s=round(wall, 3))
 
