@@ -55,7 +55,10 @@ sample.
 draws, proposal, prior) and ``accept`` (:func:`mh_accept`, the update).
 The filter stays a plain call on fresh copies of the proposal and its
 words: a filter is any callable, and the benchmark's and users' filters
-run Python on every call, time it, or keep what they are given. On a
+run Python on every call, time it, or keep what they are given. (The
+engine's own filter, ``pmmh/tuning.py::_make_pf_loglike``, which
+:func:`pmmh` runs without ``pf_impl``, replays a CUDA graph of its own
+per shape on a card, as the JAX driver compiles it once per shape.) On a
 CUDA device the halves (~225 small kernels) are captured as CUDA graphs
 once per key (:func:`_graph_key`: device, shapes, the prior callables,
 transforms and Jacobian convention), after the key's first step in the
@@ -104,6 +107,7 @@ from bayesssm_tpu_torch.pmmh.transforms import (
 )
 from bayesssm_tpu_torch.pmmh.tuning import (
     TuneControl,
+    _capture_graph,
     _make_pf_loglike,
     default_tune_control,
     mh_accept,
@@ -398,13 +402,7 @@ def _capture(propose, accept, dev):
         torch.cuda.synchronize(dev)
         stream, pool, args, captured = torch.cuda.Stream(dev), (), (), []
         for fn in (propose, accept):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(stream):
-                graph.capture_begin(*pool, capture_error_mode="thread_local")
-                try:
-                    out = fn(*args)
-                finally:
-                    graph.capture_end()
+            graph, out = _capture_graph(fn, args, stream, pool)
             captured.append((graph, out))
             pool, args = (graph.pool(),), (out,)
     return captured

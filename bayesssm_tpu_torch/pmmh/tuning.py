@@ -21,21 +21,25 @@ the propose loop's own ``split``s, and ``split(key, pilot_reps)`` for
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
+import threading
 
 import numpy as np
 import torch
 
 from bayesssm_tpu_torch.filters.core import particle_filter_core
-from bayesssm_tpu_torch.ops import threefry
+from bayesssm_tpu_torch.ops import _build, threefry
 from bayesssm_tpu_torch.pmmh.priors import sum_log_priors
 from bayesssm_tpu_torch.pmmh.transforms import (
     back_transform_params,
     log_jacobian,
     transform_params,
 )
+from bayesssm_tpu_torch.utils import timing
 from bayesssm_tpu_torch.utils.timing import (
+    count,
     host_copy,
     host_sync,
     span,
@@ -116,6 +120,149 @@ def default_tune_control(
     )
 
 
+# Filter keys (:class:`_FilterGraph`) a ``_make_pf_loglike`` closure
+# keeps, the least recently used dropped first.
+ENGINE_GRAPH_KEYS = 4
+
+
+def _graphs_on(dev) -> bool:
+    """Whether filter calls on ``dev`` can be CUDA graphs."""
+    return dev.type == "cuda"
+
+
+def _capture_graph(fn, args, stream, pool=()):
+    """``(graph, out)``: ``out = fn(*args)`` captured into a CUDA graph on
+    ``stream``, in the memory pool ``pool`` (``(graph.pool(),)`` of another
+    graph) or one of its own. Raises what the capture raises."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(*pool, capture_error_mode="thread_local")
+        try:
+            out = fn(*args)
+        finally:
+            graph.capture_end()
+    return graph, out
+
+
+def _capture_filter(run, inputs):
+    """``(graph, outputs)``: ``run(*inputs)`` captured on a side stream of
+    the device of ``inputs[0]``, after a wait for the device's queue."""
+    dev = inputs[0].device
+    torch.cuda.synchronize(dev)
+    return _capture_graph(run, inputs, torch.cuda.Stream(dev))
+
+
+def _tally() -> tuple:
+    """The port's kernel launches (``ops/_build.py``) and the thread's
+    counters, as they stand."""
+    return dict(_build.launches), timing.counters()
+
+
+def _gained(before) -> tuple:
+    """``(launches, counters)`` that moved since ``_tally()`` gave
+    ``before``, each name with what it gained."""
+    return tuple({name: n - was.get(name, 0) for name, n in now.items()
+                  if n != was.get(name, 0)}
+                 for was, now in zip(before, _tally()))
+
+
+def _add(gain, sign: int = 1) -> None:
+    """Add ``sign`` times ``gain`` (from :func:`_gained`) to the launches
+    and the counters."""
+    launches, counters = gain
+    for name, n in launches.items():
+        _build.launches[name] = _build.launches.get(name, 0) + sign * n
+    for name, n in counters.items():
+        count(name, sign * n)
+
+
+def _filter_key(words, theta, n):
+    """What a filter graph bakes in besides its closure's own callbacks,
+    configuration and ``y``: the device, the shapes and dtypes of the key
+    words and thetas, and the particle count (an int, or a tensor's shape,
+    dtype and device). None for a count of another kind."""
+    if isinstance(n, torch.Tensor):
+        count_key = (tuple(n.shape), n.dtype, n.device)
+    elif isinstance(n, (int, np.integer)):
+        count_key = int(n)
+    else:
+        return None
+    return (words.device, tuple(words.shape), words.dtype,
+            tuple(theta.shape), theta.dtype, count_key)
+
+
+class _FilterGraph:
+    """One key's filter call (:func:`_filter_key`) of a
+    ``_make_pf_loglike`` closure. The key's first call runs directly, its
+    second is captured as a CUDA graph, and every later call replays it:
+    the direct call's kernels on the call's inputs, so the same bits.
+
+    A replay copies the call's inputs into the tensors the graph reads
+    (``inputs``), adds to the launch counts and counters what the captured
+    call added (``gain``: a capture launches nothing, so it leaves them as
+    they were) and returns copies of the graph's outputs, which the next
+    replay overwrites. ``graph`` is None until the capture, and ``()`` for
+    good where the key's direct call waited on the host (a loop that asks
+    the host, such as tau-leap's ``binomial``, cannot be replayed) or the
+    capture raised; both count ``engine_graph.fallback``.
+    """
+
+    def __init__(self):
+        self.graph = None
+        self.called = False     # the key's direct call has run
+        self.busy = False       # a call holds the key
+
+    def __call__(self, run, words, theta, n):
+        if self.graph:
+            with span("filter"):
+                return self._replay(words, theta, n)
+        if self.graph is None and self.called:
+            with span("engine_capture"):
+                if self._capture(run, words, theta, n):
+                    return self._replay(words, theta, n)
+        if self.called:
+            return run(words, theta, n)
+        self.called = True
+        syncs = timing.counters().get("host_sync", 0)
+        out = run(words, theta, n)
+        if timing.counters().get("host_sync", 0) != syncs:
+            self.graph = ()
+            count("engine_graph.fallback")
+        return out
+
+    def _capture(self, run, words, theta, n) -> bool:
+        inputs = (words.clone(), theta.clone(),
+                  n.clone() if isinstance(n, torch.Tensor) else n)
+        host_sync(words)            # _capture_filter waits for the queue
+        before = _tally()
+        try:
+            self.graph, self.outputs = _capture_filter(run, inputs)
+        except RuntimeError:
+            # Work a graph cannot hold, such as a callback that copies a
+            # number from the host: the direct call does the same work.
+            self.graph = ()
+        finally:
+            self.gain = _gained(before)
+            _add(self.gain, -1)
+        if not self.graph:
+            count("engine_graph.fallback")
+            return False
+        count("engine_graph.capture")
+        self.inputs = inputs
+        return True
+
+    def _replay(self, words, theta, n):
+        words_in, theta_in, n_in = self.inputs
+        words_in.copy_(words)
+        theta_in.copy_(theta)
+        if isinstance(n_in, torch.Tensor):
+            n_in.copy_(n)
+        self.graph.replay()
+        _add(self.gain)
+        count("engine_graph.replay")
+        return tuple(t.clone() for t in self.outputs)
+
+
 def _make_pf_loglike(
     y,
     num_particles,
@@ -142,22 +289,30 @@ def _make_pf_loglike(
     the particle-sharded engine on this rank's ``max_particles /
     particle_axis_size`` lanes, inside ``parallel.mesh.use_mesh`` (the
     fused step is then off, as in JAX).
+
+    On a CUDA device a call is one CUDA graph of the whole filter, captured
+    once per key (:class:`_FilterGraph`: the device, the shapes and dtypes
+    of the words and thetas, the particle count) on the key's second call
+    and replayed after it, as the JAX function compiles it once per shape:
+    the callbacks run when the graph is captured. The closure keeps the
+    last ``ENGINE_GRAPH_KEYS`` keys. A replay returns new tensors, runs in
+    a ``filter`` span of its own with no day spans, and counts
+    ``engine_graph.replay`` and what the captured call counted. Calls stay
+    direct on the CPU, with ``particle_axis`` (collectives), while another
+    call holds the key, and for a key whose direct call waited on the host
+    or whose capture raised (``engine_graph.fallback``).
     """
     init_fn, transition_fn, log_likelihood_fn, aux_fn, move_fn = model_fns
     names = list(param_names)
     on_device = {}
+    graphs: collections.OrderedDict = collections.OrderedDict()
+    lock = threading.Lock()
 
-    def pf(seed_words, theta_vec, n=num_particles):
-        theta_vec = torch.as_tensor(theta_vec, dtype=torch.float32)
-        dev = theta_vec.device
-        if dev not in on_device:
-            host_copy(y, dev)
-            on_device[dev] = torch.as_tensor(y, dtype=torch.float32,
-                                             device=dev)
+    def run(words, theta_vec, n):
         theta = {name: theta_vec[:, j] for j, name in enumerate(names)}
         res = particle_filter_core(
-            key=torch.as_tensor(seed_words, device=dev),
-            y=on_device[dev],
+            key=words,
+            y=on_device[words.device],
             num_particles=n,
             init_fn=init_fn,
             transition_fn=transition_fn,
@@ -177,6 +332,42 @@ def _make_pf_loglike(
         )
         return res.loglike, res.state_est
 
+    def claim(key):
+        """The key's graph, held for one call; None while another call
+        holds it."""
+        with lock:
+            entry = graphs.get(key)
+            if entry is None:
+                entry = graphs[key] = _FilterGraph()
+                while len(graphs) > ENGINE_GRAPH_KEYS:
+                    graphs.popitem(last=False)
+            graphs.move_to_end(key)
+            if entry.busy:
+                return None
+            entry.busy = True
+            return entry
+
+    def pf(seed_words, theta_vec, n=num_particles):
+        theta_vec = torch.as_tensor(theta_vec, dtype=torch.float32)
+        dev = theta_vec.device
+        if dev not in on_device:
+            host_copy(y, dev)
+            on_device[dev] = torch.as_tensor(y, dtype=torch.float32,
+                                             device=dev)
+        words = torch.as_tensor(seed_words, device=dev)
+        if particle_axis is not None or not _graphs_on(dev):
+            return run(words, theta_vec, n)
+        key = _filter_key(words, theta_vec, n)
+        entry = None if key is None else claim(key)
+        if entry is None:
+            count("engine_graph.fallback")
+            return run(words, theta_vec, n)
+        try:
+            return entry(run, words, theta_vec, n)
+        finally:
+            entry.busy = False
+
+    pf.graphs = graphs
     return pf
 
 

@@ -10,7 +10,8 @@
   ``record_function("bssm.<name>")``, so it lies on the profiler's
   timeline beside the device's operations; otherwise it opens nothing
   more.
-* :func:`count` — a named counter, always on. :func:`host_sync` counts a
+* :func:`count` — a named counter, always on (:func:`counters` reads
+  the thread's totals). :func:`host_sync` counts a
   point where the host waits on a device (``host_sync``): a copy to or
   from host memory (:func:`host_copy` for a copy to the device of what
   may already be there), ``.item()``, ``bool()`` of a device tensor,
@@ -42,7 +43,7 @@ import time
 import torch
 import torch.autograd.profiler as _profiler
 
-__all__ = ["span", "spanned", "count", "host_sync", "host_copy",
+__all__ = ["span", "spanned", "count", "counters", "host_sync", "host_copy",
            "recent_calls", "reset", "PhaseTimer", "SPAN_PREFIX",
            "RECENT_CALLS"]
 
@@ -154,6 +155,12 @@ def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name``."""
     c = _tls.counters
     c[name] = c.get(name, 0) + n
+
+
+def counters() -> dict:
+    """A copy of the calling thread's counters: name -> total since the
+    thread began."""
+    return dict(_tls.counters)
 
 
 def host_sync(where, n: int = 1) -> None:
