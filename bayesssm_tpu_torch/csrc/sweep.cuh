@@ -44,6 +44,13 @@
 // A functor may set kHasPack (with DP packed columns, pack(st, pk) and
 // unpack(pk, st)): selection then routes the DP packed columns, unpacks
 // and re-masks, as the JAX builder's pack_fn/unpack_fn do.
+//
+// A functor generated from callbacks that run rng.event_loop
+// (ops/sweep_codegen.py) loops lane by lane as SirModel does and ends each
+// loop in block_max_int, so every thread calls it, masked lanes included,
+// as every functor is called here. Only such a functor adds into the
+// device tally that every generated functor holds (loop_tally); the kernel
+// itself is the same for all.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,6 +83,19 @@ struct Route<M, std::void_t<decltype(M::kHasPack)>> {
   static constexpr bool kPack = M::kHasPack;
   static constexpr int kCols = M::kHasPack ? M::DP : M::D;
 };
+
+// The tally of a loop functor's loop (ops/sweep_codegen.py): tally[0]
+// gains the lanes' own iterations `own` (one warp sum and one atomic a
+// warp), tally[1] the lane-slots the block issued, its largest count `kc`
+// times its lanes. Every thread of the block calls it.
+__device__ __forceinline__ void loop_tally(unsigned long long* tally, int own,
+                                           int kc) {
+  const unsigned warp = __reduce_add_sync(kAllLanes, (unsigned)own);
+  if ((threadIdx.x & 31) == 0) atomicAdd(tally, (unsigned long long)warp);
+  if (threadIdx.x == 0) {
+    atomicAdd(tally + 1, (unsigned long long)kc * blockDim.x);
+  }
+}
 
 // One position per lane from one uniform block: stratified, or systematic
 // with lane 0's draw for every slot; masked lanes get 1.0.

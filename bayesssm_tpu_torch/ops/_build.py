@@ -33,10 +33,14 @@ Every launcher adds one to ``launches[entry]`` when it launches its
 kernel, and nowhere else. Counters of ``utils/timing.py``: a sweep launch
 adds ``C * N * T`` to ``sweep.lane_days`` and ``C * N`` times its
 transitions before the weight stages (the gaps' sum, ``T`` without a gap
-table) to ``sweep.lane_transitions``; a generated unit's first use in
-a process, inside the span ``load_generated``, counts ``generated.build``
-when ``nvcc`` ran and ``generated.load`` when its library was already in
-``build/``.
+table) to ``sweep.lane_transitions``; a launch of a generated functor
+takes the sweep op's device tally, into which its loops, if it holds any,
+add the lanes' own loop iterations and the blocks' issued lane-slots,
+``sample_chains`` folds into ``sweep.loop_iters`` and ``sweep.loop_slots``
+at the host wait that ends it (``utils/timing.py::DeviceTally``); a
+generated unit's first use in a process, inside the span
+``load_generated``, counts ``generated.build`` when ``nvcc`` ran and
+``generated.load`` when its library was already in ``build/``.
 """
 
 from __future__ import annotations
@@ -120,7 +124,8 @@ _generated: dict = {}  # unit hash -> loaded library
 
 # The translation unit of a generated functor: the functor source (a struct
 # ``GenModel`` with the models.cuh interface) and one entry with the shared
-# sweep arguments and no model constants.
+# sweep arguments, no model constants, and the device tally its loops add
+# into (``GenModel::tally``).
 _GEN_TEMPLATE = """// Generated by bayesssm_tpu_torch/ops/sweep_codegen.py: do not edit.
 #include "sweep.cuh"
 
@@ -132,10 +137,10 @@ extern "C" int {entry}(const int* seeds, const float* y, const float* theta,
                       const float* alive, const float* thr, float* ll,
                       float* est, const int* gaps, const int* times, int C,
                       int N, int T, int mode, int systematic, int algorithm,
-                      void* stream) {{
-  return bssm::launch_sweep(bssm::GenModel{{}}, seeds, y, theta, alive, thr,
-                            ll, est, gaps, times, C, N, T, mode, systematic,
-                            algorithm, (cudaStream_t)stream);
+                      unsigned long long* tally, void* stream) {{
+  return bssm::launch_sweep(bssm::GenModel{{tally}}, seeds, y, theta, alive,
+                            thr, ll, est, gaps, times, C, N, T, mode,
+                            systematic, algorithm, (cudaStream_t)stream);
 }}
 """
 
@@ -294,7 +299,7 @@ def build_generated(functor: str):
     lib = _build_unit(_GEN_TEMPLATE.format(functor=functor, entry=entry),
                       entry.rsplit("_", 1)[1])
     fn = getattr(lib, entry)
-    fn.argtypes = [*_SWEEP_SHARED, _P]
+    fn.argtypes = [*_SWEEP_SHARED, _P, _P]
     fn.restype = _I
     return lib, entry
 
@@ -344,13 +349,16 @@ def _seeds_i32(words: torch.Tensor) -> torch.Tensor:
 
 
 def launch_sweep(kernel, words, ys, theta, alive, thr, n, *, d, mode,
-                 systematic, algorithm=0, gap_table=None, transitions=None):
+                 systematic, algorithm=0, gap_table=None, transitions=None,
+                 tally=None):
     """Launch ``kernel.entry`` (or, for a ``kernel.source``, the generated
     functor's entry) for ``C`` chains of ``n`` lanes; ``algorithm``
     0/1/2 is BPF/APF/RMPF, ``gap_table`` an int32 ``[2, T]`` tensor on the
     launch's device holding the per-observation transition counts and
     their running sum (``None`` for one transition a day), and
     ``transitions`` the counts' sum, known on the host (``T`` if ``None``).
+    A generated functor (``kernel.source``) takes ``tally``, an int64
+    ``[2]`` tensor on the launch's device, which its loops add into.
 
     Returns ``(loglike [C], state_est [C, T+1, d])``.
     """
@@ -372,6 +380,12 @@ def launch_sweep(kernel, words, ys, theta, alive, thr, n, *, d, mode,
     if gap_table is not None:
         _check({"gap_table": (gap_table, torch.int32)}, dev)
         gap_ptrs = (gap_table[0].data_ptr(), gap_table[1].data_ptr())
+    tally_ptr = ()
+    if kernel.source is not None:
+        if tally is None or tally.shape != (2,):
+            raise ValueError("a generated functor needs its [2] tally")
+        _check({"tally": (tally, torch.int64)}, dev)
+        tally_ptr = (tally.data_ptr(),)
     ll = torch.empty(c, dtype=torch.float32, device=dev)
     est = torch.empty((c, t + 1, d), dtype=torch.float32, device=dev)
     if kernel.source is None:
@@ -382,7 +396,7 @@ def launch_sweep(kernel, words, ys, theta, alive, thr, n, *, d, mode,
         seeds.data_ptr(), ys.data_ptr(), theta.data_ptr(), alive.data_ptr(),
         thr.data_ptr(), ll.data_ptr(), est.data_ptr(), *gap_ptrs, c, n, t,
         int(mode), int(bool(systematic)), int(algorithm), *kernel.consts,
-        _stream(dev),
+        *tally_ptr, _stream(dev),
     )
     _raise_on(rc, entry)
     launches[key] += 1

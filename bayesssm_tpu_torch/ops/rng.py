@@ -16,7 +16,9 @@ counter ``k``:
 Each chain threads its own counter ``k`` through the sweep (the
 ``SweepRng`` draw schedule, :72-133), so a chain's draws depend only on
 its two words, its lanes and how many blocks it has drawn — never on the
-other chains of the batch. The CUDA kernel computes the same words with
+other chains of the batch. :meth:`SweepRng.event_loop` runs a callback's
+own loop on that counter, as the JAX builder's callbacks thread it
+through a ``lax.while_loop``. The CUDA kernel computes the same words with
 ``uint32_t`` arithmetic (``csrc/rng.cuh``); here they are int64 tensors
 holding uint32 values, with every product reduced mod 2**32 through
 16-bit halves so that no int64 product overflows.
@@ -27,6 +29,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from bayesssm_tpu_torch.utils.timing import count
 
 __all__ = [
     "MASK32",
@@ -118,9 +122,12 @@ class SweepRng:
     """Batched twin of the JAX ``SweepRng`` handle: every chain row carries
     its own draw counter (``[C, 1]`` int64).
 
-    Callbacks that loop on their own thread the counter explicitly
-    (:meth:`counter`, :meth:`raw_uniform_blocks`, :meth:`set_counter`),
-    as the SIR event loop does.
+    A callback runs a loop of its own, such as an exact event simulator,
+    through :meth:`event_loop`, which the sweep tracer also takes, so that
+    the loop runs inside K1 on a card. The hand-written SIR event loop
+    threads the counter explicitly instead (:meth:`counter`,
+    :meth:`raw_uniform_blocks`, :meth:`set_counter`), which runs in the
+    plain sweep only.
     """
 
     def __init__(self, keys: torch.Tensor, ctr: torch.Tensor | None = None):
@@ -130,18 +137,28 @@ class SweepRng:
                         device=keys.device)
             if ctr is None else ctr
         )
+        self._looping = False
+
+    def _draw(self, what: str) -> None:
+        if self._looping:
+            raise ValueError(
+                f"{what} inside rng.event_loop's cond_fn or body_fn: the "
+                "body takes its uniforms as its first argument")
 
     def uniform(self) -> torch.Tensor:
+        self._draw("rng.uniform()")
         u = uniform_blocks(self.keys, self._ctr, 1)[0]
         self._ctr = self._ctr + 1
         return u
 
     def uniforms(self, k: int) -> torch.Tensor:
+        self._draw("rng.uniforms()")
         u = uniform_blocks(self.keys, self._ctr, int(k))
         self._ctr = self._ctr + int(k)
         return u
 
     def normal(self) -> torch.Tensor:
+        self._draw("rng.normal()")
         u = self.uniforms(2)
         return box_muller(u[0], u[1])
 
@@ -155,3 +172,56 @@ class SweepRng:
         """``(blocks [nblk, C, N], ctr + nblk)``; the handle's own counter
         is left alone."""
         return uniform_blocks(self.keys, ctr, nblk), ctr + nblk
+
+    def event_loop(self, cond_fn, body_fn, carry, *, draws: int,
+                   max_iters: int):
+        """A loop of the callback's own: the final carry.
+
+        ``carry`` is a tuple of ``[C, N]`` float32 columns, ``cond_fn(carry)``
+        a lane's bool "still running" and ``body_fn(u, carry)`` the new
+        carry, ``u`` a tuple of ``draws`` uniform blocks. Both may read
+        values closed over from the callback, and neither may draw from
+        this handle. Iteration ``k`` of chain ``c`` runs while some lane of
+        ``c`` satisfies ``cond_fn`` and ``k < max_iters``; it draws its
+        blocks at counters ``ctr + draws * k``, and lanes whose condition
+        is false keep their carry. Afterwards the chain's counter is ``ctr
+        + draws * K_c``, ``K_c`` the iterations it ran. As ``cond_fn``
+        reads only the carry, a lane that has stopped stays stopped, so a
+        lane may equally loop on its own (K1's generated functor does).
+
+        Counts ``sweep.loop_iters`` (the lanes' own iterations, those in
+        which their condition held) and ``sweep.loop_slots`` (``K_c``
+        times the chain's lanes, summed over the chains).
+        """
+        draws, max_iters = int(draws), int(max_iters)
+        if draws < 1 or max_iters < 0:
+            raise ValueError("event_loop needs draws >= 1 and max_iters >= 0")
+        if self._looping:
+            raise ValueError("a nested rng.event_loop: a callback's loop "
+                             "may not hold another")
+        carry = tuple(carry)
+        ran = torch.zeros_like(self._ctr)
+        iters = torch.zeros((), dtype=torch.int64, device=self.keys.device)
+        self._looping = True
+        try:
+            for k in range(max_iters):
+                live = cond_fn(carry)
+                go = live.any(dim=1, keepdim=True)
+                if not bool(go.any()):
+                    break
+                u = uniform_blocks(self.keys, self._ctr + draws * k, draws)
+                new = tuple(body_fn(tuple(u), carry))
+                if len(new) != len(carry):
+                    raise ValueError(
+                        f"event_loop's body_fn must return {len(carry)} "
+                        f"columns (got {len(new)})")
+                carry = tuple(torch.where(live, x, c)
+                              for x, c in zip(new, carry))
+                ran = ran + go
+                iters = iters + live.sum()
+        finally:
+            self._looping = False
+        self._ctr = self._ctr + draws * ran
+        count("sweep.loop_iters", int(iters))
+        count("sweep.loop_slots", int(ran.sum()) * self.keys.shape[1])
+        return carry

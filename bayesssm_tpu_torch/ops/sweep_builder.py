@@ -54,10 +54,13 @@ Two implementations stand behind one op:
   model, launches counted under ``bssm_sweep_generated``).
 
 Calling the op routes by device: CPU tensors run the plain version, CUDA
-tensors launch the kernel. Callbacks the tracer cannot take (indexing,
-reductions, Python control flow on values, the counter-threading ``rng``
-methods) raise ``ValueError`` naming the operation on CUDA tensors; the
-plain sweep on CPU tensors runs them as before.
+tensors launch the kernel. A callback's own loop runs through
+``rng.event_loop`` (``ops/rng.py``), which traces: the plain sweep runs it
+over ``[C, N]`` masked, K1 lane by lane. Callbacks the tracer cannot take
+(indexing, reductions, Python control flow on values, the
+counter-threading ``rng`` methods, a draw from ``rng`` inside a loop, a
+loop inside a loop) raise ``ValueError`` naming the operation on CUDA
+tensors; the plain sweep on CPU tensors runs the first four as before.
 
 A call opens the spans ``prepare`` (its checks and copies) and, on a card,
 ``launch`` (``_build.launch_sweep``); the first CUDA call of an op with no
@@ -68,6 +71,7 @@ hand-written functor traces and emits its functor inside ``codegen``
 from __future__ import annotations
 
 import math
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -76,7 +80,7 @@ import torch
 from bayesssm_tpu_torch.ops import _build, sweep_codegen
 from bayesssm_tpu_torch.ops.merge_select import select_cols_reference
 from bayesssm_tpu_torch.ops.rng import SweepRng, lane_keys
-from bayesssm_tpu_torch.utils.timing import host_copy, span
+from bayesssm_tpu_torch.utils.timing import DeviceTally, host_copy, span
 
 __all__ = [
     "KernelModel",
@@ -102,7 +106,8 @@ class KernelModel(NamedTuple):
     ``bssm_sweep_lgss_mv``, ``bssm_sweep_sinusoidal``) and ``consts`` its
     model constants, in the C signature's order. A functor generated from
     traced callbacks has ``source`` (its C++), no constants, and the entry
-    ``_build.generated_entry(source)``."""
+    ``_build.generated_entry(source)``; its launches take the op's device
+    tally, which a callback's ``rng.event_loop`` adds into."""
 
     entry: str
     consts: tuple = ()
@@ -197,6 +202,7 @@ class SweepOp:
         self.algorithm = ("APF" if aux_log_weight_fn is not None
                           else "RMPF" if move_fn is not None else "BPF")
         self._generated = None  # the traced functor, made at first use
+        self._tallies = {}  # (device, thread) -> its DeviceTally
 
     def _prepare(self, seed_words, y, theta, num_particles, max_particles,
                  threshold):
@@ -269,6 +275,8 @@ class SweepOp:
                     gap_table=self._gap_table(args[2].device),
                     transitions=None if self.times is None
                     else self.times[-1],
+                    tally=None if kernel.source is None
+                    else self._tally(args[2].device),
                 )
         return ll, self._shape_est(est)
 
@@ -289,6 +297,17 @@ class SweepOp:
             self._generated = KernelModel(_build.generated_entry(source),
                                           (), source)
         return self._generated
+
+    def _tally(self, dev):
+        """The ``[2]`` int64 tally ``sweep.loop_iters``,
+        ``sweep.loop_slots`` that the calling thread's launches of the
+        generated functor on ``dev`` add into, made there once, fed
+        (``utils/timing.py::DeviceTally``)."""
+        key = (dev, threading.get_ident())
+        if key not in self._tallies:
+            self._tallies[key] = DeviceTally(
+                ("sweep.loop_iters", "sweep.loop_slots"), dev)
+        return self._tallies[key].feed()
 
     def _gap_table(self, dev):
         """The kernel's ``[2, T]`` int32 gaps and times on ``dev``, copied

@@ -21,10 +21,25 @@ number bounds, ``where``, ``pow`` with a number exponent, ``logical_and``,
 ``logical_or``, ``logical_not``, ``zeros_like``, ``ones_like`` and
 ``full_like`` (and the same names as tensor methods); Python numbers,
 numpy scalars and 0-d tensors as constants; the time index ``t`` in Python
-arithmetic; ``rng.uniform()``, ``rng.uniforms(k)`` and ``rng.normal()``.
-Indexing, reductions, ``bool()``/``if`` on a traced value, tensors that
-are not 0-d and the counter-threading ``rng`` methods (loops: the SIR
-event loop stays a hand-written functor) do not trace.
+arithmetic; ``rng.uniform()``, ``rng.uniforms(k)`` and ``rng.normal()``;
+and a loop of the callback's own, ``rng.event_loop(cond_fn, body_fn,
+carry, draws=, max_iters=)`` (``ops/rng.py::SweepRng.event_loop``), whose
+condition and body are traced into sub-traces of a ``loop`` node: they
+may read values closed over from the callback, but may not draw from
+``rng`` or hold a loop of their own. Indexing, reductions,
+``bool()``/``if`` on a traced value, tensors that are not 0-d and the
+counter-threading ``rng`` methods (the SIR event loop stays a
+hand-written functor) do not trace.
+
+A ``loop`` node becomes a per-lane ``while`` loop: each lane runs its body
+while its condition holds and its iterations are below ``max_iters``,
+drawing at ``ctr + draws * k``; then every thread of the block takes the
+block's largest iteration count, ``K``, and the chain's counter moves by
+``draws * K``, as ``SirModel::transition`` does (``csrc/models.cuh``).
+So every thread must call a functor that holds a loop, as K1 does; the
+loop also adds the lanes' own iterations and ``K`` times the block's
+lanes into the sweep op's device tally, which every generated functor
+holds (``tally``, ``csrc/sweep.cuh::loop_tally``).
 
 Each IR node becomes one C++ statement, in trace order, computed by the
 function PyTorch's CUDA kernel computes for that op, rounded once: the
@@ -48,9 +63,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["Const", "Node", "TracedFn", "TracedModel", "trace_fn",
+__all__ = ["Const", "Node", "TracedFn", "Loop", "TracedModel", "trace_fn",
            "trace_model", "emit_functor", "evaluate", "hex_float",
-           "probe", "probe_source", "op_zoo"]
+           "probe", "probe_source", "op_zoo", "loop_zoo", "LOOP_ZOO_CAPS"]
 
 
 class Const(NamedTuple):
@@ -84,6 +99,19 @@ class TracedFn(NamedTuple):
     single: bool
 
 
+class Loop(NamedTuple):
+    """The ``attr`` of a ``loop`` node, whose ``args`` are the initial
+    carry: the condition's and the body's sub-traces (their inputs are
+    ``carry``, ``draw`` and ``outer`` nodes, the last a node of the
+    enclosing callback) and the loop's ``draws`` and ``max_iters``. Its
+    results are ``loop_out`` nodes."""
+
+    cond: TracedFn
+    body: TracedFn
+    draws: int
+    max_iters: int
+
+
 class TracedModel(NamedTuple):
     """The traced callbacks of one sweep op, keyed ``init``,
     ``transition``, ``log_weight`` and, where given, ``aux_log_weight``,
@@ -113,9 +141,12 @@ def _reject(where: str, what: str):
 
 
 class _Trace:
-    def __init__(self, name: str):
+    def __init__(self, name: str, parent: "_Trace | None" = None):
         self.name = name
         self.nodes: list = []
+        self.parent = parent      # the callback's trace, for a loop's
+        self.outer: dict = {}     # parent ref -> this trace's outer node
+        self.looping = False      # a loop's sub-traces are being made
 
     def add(self, op, args, kind, attr=None) -> "Val":
         self.nodes.append(Node(op, tuple(args), kind, attr))
@@ -124,9 +155,15 @@ class _Trace:
     def operand(self, x, what: str):
         """A node index or a :class:`Const` for ``x``."""
         if isinstance(x, Val):
-            if x.trace is not self:
-                _reject(self.name, "a value traced in another callback")
-            return x.ref
+            if x.trace is self:
+                return x.ref
+            if x.trace is self.parent:
+                if x.ref not in self.outer:
+                    self.outer[x.ref] = self.add("outer", (), x.kind,
+                                                 x.ref).ref
+                return self.outer[x.ref]
+            _reject(self.name, "a value traced in another callback (or in "
+                    "another part of a loop)")
         if isinstance(x, (bool, np.bool_)):
             return Const(bool(x), "b")
         if isinstance(x, (int, np.integer)):
@@ -163,13 +200,11 @@ class Val:
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         name = getattr(func, "__name__", str(func)).strip("_")
-        trace = next(a.trace for a in (*args, *(kwargs or {}).values())
-                     if isinstance(a, Val))
-        return _dispatch(trace, name, args, kwargs or {})
+        return _dispatch(name, args, kwargs or {})
 
     def __getattr__(self, name):
         if name in _METHODS:
-            return lambda *a, **k: _dispatch(self.trace, name, (self, *a), k)
+            return lambda *a, **k: _dispatch(name, (self, *a), k)
         _reject(self.trace.name, f"`.{name}`")
 
     def __bool__(self):
@@ -193,81 +228,89 @@ class Val:
     __index__ = __int__
 
     def __add__(self, o):
-        return _binary(self.trace, "add", self, o)
+        return _binary("add", self, o)
 
     def __radd__(self, o):
-        return _binary(self.trace, "add", o, self)
+        return _binary("add", o, self)
 
     def __sub__(self, o):
-        return _binary(self.trace, "sub", self, o)
+        return _binary("sub", self, o)
 
     def __rsub__(self, o):
-        return _binary(self.trace, "sub", o, self)
+        return _binary("sub", o, self)
 
     def __mul__(self, o):
-        return _binary(self.trace, "mul", self, o)
+        return _binary("mul", self, o)
 
     def __rmul__(self, o):
-        return _binary(self.trace, "mul", o, self)
+        return _binary("mul", o, self)
 
     def __truediv__(self, o):
-        return _binary(self.trace, "div", self, o)
+        return _binary("div", self, o)
 
     def __rtruediv__(self, o):
-        return _binary(self.trace, "div", o, self)
+        return _binary("div", o, self)
 
     def __pow__(self, o):
-        return _dispatch(self.trace, "pow", (self, o), {})
+        return _dispatch("pow", (self, o), {})
 
     def __rpow__(self, o):
         _reject(self.trace.name, "a number raised to a traced power")
 
     def __neg__(self):
-        return _dispatch(self.trace, "neg", (self,), {})
+        return _dispatch("neg", (self,), {})
 
     def __abs__(self):
-        return _dispatch(self.trace, "abs", (self,), {})
+        return _dispatch("abs", (self,), {})
 
     def __lt__(self, o):
-        return _compare(self.trace, "lt", self, o)
+        return _compare("lt", self, o)
 
     def __le__(self, o):
-        return _compare(self.trace, "le", self, o)
+        return _compare("le", self, o)
 
     def __gt__(self, o):
-        return _compare(self.trace, "gt", self, o)
+        return _compare("gt", self, o)
 
     def __ge__(self, o):
-        return _compare(self.trace, "ge", self, o)
+        return _compare("ge", self, o)
 
     def __eq__(self, o):
-        return _compare(self.trace, "eq", self, o)
+        return _compare("eq", self, o)
 
     def __ne__(self, o):
-        return _compare(self.trace, "ne", self, o)
+        return _compare("ne", self, o)
 
     __hash__ = None
 
     def __and__(self, o):
-        return _logical(self.trace, "and", self, o)
+        return _logical("and", self, o)
 
     __rand__ = __and__
 
     def __or__(self, o):
-        return _logical(self.trace, "or", self, o)
+        return _logical("or", self, o)
 
     __ror__ = __or__
 
     def __xor__(self, o):
-        return _logical(self.trace, "xor", self, o)
+        return _logical("xor", self, o)
 
     __rxor__ = __xor__
 
     def __invert__(self):
-        return _dispatch(self.trace, "logical_not", (self,), {})
+        return _dispatch("logical_not", (self,), {})
 
 
-def _binary(tr: _Trace, op: str, a, b):
+def _innermost(*xs) -> _Trace:
+    """The trace an op on ``xs`` belongs to: a loop's sub-trace when one
+    operand lies in it, the callback's otherwise."""
+    traces = [x.trace for x in xs if isinstance(x, Val)]
+    return next((t for t in traces if t.parent is not None), traces[0])
+
+
+def _binary(op: str, a, b):
+    tr = _innermost(a, b)
     ra, rb = tr.operand(a, op), tr.operand(b, op)
     ka, kb = tr.kind(ra), tr.kind(rb)
     if "b" in (ka, kb):
@@ -278,11 +321,12 @@ def _binary(tr: _Trace, op: str, a, b):
         return tr.add(op, (ra, rb), kind)
     if op == "div" and ka in _HOST and not isinstance(a, torch.Tensor):
         # ``number / tensor`` is ``tensor.reciprocal() * number``.
-        return _binary(tr, "mul", tr.add("recip", (rb,), "f"), a)
+        return _binary("mul", tr.add("recip", (rb,), "f"), a)
     return tr.add(op, (ra, rb), "f")
 
 
-def _compare(tr: _Trace, op: str, a, b):
+def _compare(op: str, a, b):
+    tr = _innermost(a, b)
     ra, rb = tr.operand(a, op), tr.operand(b, op)
     if "f" not in (tr.kind(ra), tr.kind(rb)):
         _reject(tr.name, f"a comparison (`{op}`) without a float32 lane "
@@ -292,7 +336,8 @@ def _compare(tr: _Trace, op: str, a, b):
     return tr.add(op, (ra, rb), "b")
 
 
-def _logical(tr: _Trace, op: str, a, b):
+def _logical(op: str, a, b):
+    tr = _innermost(a, b)
     ra, rb = tr.operand(a, op), tr.operand(b, op)
     if tr.kind(ra) != "b" or tr.kind(rb) != "b":
         _reject(tr.name, f"`{op}` of a value that is not a comparison")
@@ -324,19 +369,20 @@ _METHODS = {*_UNARY, "square", "neg", "pow", "maximum", "minimum", "clamp",
             "logical_not", "logical_and", "logical_or"}
 
 
-def _dispatch(tr: _Trace, name: str, args, kwargs):
+def _dispatch(name: str, args, kwargs):
     """A ``torch`` function (or tensor method) applied to traced values."""
+    tr = _innermost(*args, *kwargs.values())
     op = _ALIASES.get(name, name)
     if op in ("add", "sub") and kwargs.get("alpha", 1) != 1:
         _reject(tr.name, f"`{name}` with alpha")
     if op == "div" and kwargs.get("rounding_mode") is not None:
         _reject(tr.name, f"`{name}` with a rounding mode")
     if op in _ARITH:
-        return _binary(tr, op, args[0], args[1])
+        return _binary(op, args[0], args[1])
     if op in _COMPARE:
-        return _compare(tr, op, args[0], args[1])
+        return _compare(op, args[0], args[1])
     if op in _LOGICAL:
-        return _logical(tr, op, args[0], args[1])
+        return _logical(op, args[0], args[1])
     if op == "logical_not":
         ref = tr.operand(args[0], name)
         if tr.kind(ref) != "b":
@@ -393,19 +439,53 @@ class _Rng:
     def __init__(self, trace: _Trace):
         self._trace = trace
 
+    def _draw(self, op, what):
+        if self._trace.looping:
+            _reject(self._trace.name, f"{what} inside rng.event_loop's "
+                    "cond_fn or body_fn (the body takes its uniforms as its "
+                    "first argument)")
+        return self._trace.add(op, (), "f")
+
     def uniform(self):
-        return self._trace.add("uniform", (), "f")
+        return self._draw("uniform", "`rng.uniform()`")
 
     def uniforms(self, k):
-        return tuple(self.uniform() for _ in range(int(k)))
+        return tuple(self._draw("uniform", "`rng.uniforms()`")
+                     for _ in range(int(k)))
 
     def normal(self):
-        return self._trace.add("normal", (), "f")
+        return self._draw("normal", "`rng.normal()`")
+
+    def event_loop(self, cond_fn, body_fn, carry, *, draws, max_iters):
+        """``SweepRng.event_loop`` as a ``loop`` node: its condition and
+        body traced on proxies of the carry and the draws."""
+        tr = self._trace
+        if tr.looping:
+            _reject(tr.name, "a nested `rng.event_loop`")
+        draws, max_iters = int(draws), int(max_iters)
+        if draws < 1 or max_iters < 0:
+            raise ValueError(f"{tr.name}: event_loop needs draws >= 1 and "
+                             "max_iters >= 0")
+        refs = tuple(tr.operand(x, "event_loop carry") for x in carry)
+        if any(tr.kind(r) != "f" for r in refs):
+            _reject(tr.name, "an event_loop carry that is not a float32 lane "
+                    "value")
+        k = len(refs)
+        tr.looping = True
+        try:
+            cond = _sub_trace(tr, "cond_fn", cond_fn, k, 0, True)
+            body = _sub_trace(tr, "body_fn", body_fn, k, draws, False)
+        finally:
+            tr.looping = False
+        loop = tr.add("loop", refs, "loop", Loop(cond, body, draws,
+                                                 max_iters))
+        return tuple(tr.add("loop_out", (loop.ref,), "f", j)
+                     for j in range(k))
 
     def counter(self):
-        _reject(self._trace.name, "`rng.counter()` (a callback that threads "
-                "its own counter, as the SIR event loop does, needs a "
-                "hand-written functor)")
+        _reject(self._trace.name, "`rng.counter()` (a loop traces through "
+                "`rng.event_loop`; a callback that threads its own counter "
+                "needs a hand-written functor)")
 
     def set_counter(self, ctr):
         _reject(self._trace.name, "`rng.set_counter()`")
@@ -414,13 +494,34 @@ class _Rng:
         _reject(self._trace.name, "`rng.raw_uniform_blocks()`")
 
     def __getattr__(self, name):
-        _reject(self._trace.name, f"`rng.{name}` (a callback that threads "
-                "its own counter, as the SIR event loop does, needs a "
-                "hand-written functor)")
+        _reject(self._trace.name, f"`rng.{name}` (a loop traces through "
+                "`rng.event_loop`; a callback that threads its own counter "
+                "needs a hand-written functor)")
 
 
-def _inputs(tr: _Trace, op: str, count: int):
-    return tuple(tr.add(op, (), "f", j) for j in range(count))
+def _sub_trace(parent: _Trace, part: str, fn, k: int, draws: int,
+               single: bool) -> TracedFn:
+    """``fn`` traced on ``k`` carry proxies (after a tuple of ``draws``
+    uniform proxies for a body) inside ``parent``'s loop."""
+    name = f"{parent.name}: event_loop {part}"
+    tr = _Trace(name, parent)
+    u = tuple(tr.add("draw", (), "f", j) for j in range(draws))
+    carry = tuple(tr.add("carry", (), "f", j) for j in range(k))
+    try:
+        out = fn(carry) if single else fn(u, carry)
+    except (TypeError, RuntimeError) as err:
+        raise ValueError(f"{name}: the callback failed under the sweep "
+                         f"tracer: {err}") from err
+    outs = (out,) if single else tuple(out)
+    if not single and len(outs) != k:
+        raise ValueError(f"{name} must return {k} columns (got "
+                         f"{len(outs)})")
+    refs = tuple(tr.operand(o, "return") for o in outs)
+    want = "b" if single else "f"
+    if any(tr.kind(r) != want for r in refs):
+        _reject(name, "a condition that is not a comparison" if single
+                else "a carry that is not a float32 lane value")
+    return TracedFn(name, tuple(tr.nodes), refs, single)
 
 
 def trace_fn(name: str, fn, args, single=False, n_out=None,
@@ -506,9 +607,11 @@ def hex_float(value, double=False) -> str:
 
 
 class _Emitter:
-    def __init__(self, fn: TracedFn, arrays: dict):
+    def __init__(self, fn: TracedFn, arrays: dict, prefix: str = "v"):
         self.fn = fn
         self.arrays = arrays  # input op -> C array name
+        self.prefix = prefix  # of the node variables; a loop's sub-traces
+                              # take l<node>c / l<node>b, the callback v
 
     def kind(self, ref):
         return ref.kind if isinstance(ref, Const) else self.fn.nodes[ref].kind
@@ -518,15 +621,15 @@ class _Emitter:
         if isinstance(ref, Const):
             return hex_float(float(ref.value))
         if self.fn.nodes[ref].kind in _HOST:
-            return f"((float)v{ref})"
-        return f"v{ref}"
+            return f"((float){self.prefix}{ref})"
+        return f"{self.prefix}{ref}"
 
     def host(self, ref) -> str:
         if isinstance(ref, Const):
             if ref.kind == "i":
                 return str(int(ref.value))
             return hex_float(ref.value, double=True)
-        return f"v{ref}"
+        return f"{self.prefix}{ref}"
 
     def expr(self, node: Node) -> str:
         op, a = node.op, node.args
@@ -538,6 +641,14 @@ class _Emitter:
             return "rng.uniform()"
         if op == "normal":
             return "rng.normal()"
+        if op == "outer":
+            return f"v{node.attr}"
+        if op == "carry":
+            return f"{self.prefix[:-1]}_x{node.attr}"
+        if op == "draw":
+            return f"rng.uniform_at({self.prefix[:-1]}_ctr + {node.attr})"
+        if op == "loop_out":
+            return f"l{a[0]}_x{node.attr}"
         if op == "full":
             return hex_float(node.attr)
         if node.kind in _HOST:
@@ -583,7 +694,7 @@ class _Emitter:
     def b(self, ref) -> str:
         if isinstance(ref, Const):
             return "true" if ref.value else "false"
-        return f"v{ref}"
+        return f"{self.prefix}{ref}"
 
     def _host_operand(self, ref) -> bool:
         """A divisor PyTorch sees as a CPU scalar: a Python number, a CPU
@@ -598,10 +709,43 @@ class _Emitter:
         return f"(1.0f / {self.f(ref)})"
 
     def statements(self) -> list:
-        """One C++ statement per IR node, in trace order."""
+        """One C++ statement per IR node, in trace order; a ``loop`` node
+        is a block of them."""
         ctype = {"f": "float", "b": "bool", "i": "int", "d": "double"}
-        return [f"    const {ctype[n.kind]} v{i} = {self.expr(n)};"
-                for i, n in enumerate(self.fn.nodes)]
+        lines = []
+        for i, n in enumerate(self.fn.nodes):
+            if n.op == "loop":
+                lines += self._loop(i, n)
+            else:
+                lines.append(f"    const {ctype[n.kind]} {self.prefix}{i} = "
+                             f"{self.expr(n)};")
+        return lines
+
+    def _loop(self, i: int, node: Node) -> list:
+        """The per-lane loop of node ``i`` (module docstring): carry
+        ``l<i>_x<j>``, the lane's iterations ``l<i>_k``, then the block's
+        largest count moves the chain's counter and the tally."""
+        loop, tag = node.attr, f"l{i}"
+        cond = _Emitter(loop.cond, {}, f"{tag}c")
+        body = _Emitter(loop.body, {}, f"{tag}b")
+        lines = [f"    // rng.event_loop: {loop.draws} draws an iteration, "
+                 f"at most {loop.max_iters}"]
+        lines += [f"    float {tag}_x{j} = {self.f(r)};"
+                  for j, r in enumerate(node.args)]
+        lines += [f"    int {tag}_k = 0;",
+                  f"    while ({tag}_k < {loop.max_iters}) {{"]
+        lines += ["  " + line for line in cond.statements()]
+        lines += [f"      if (!{cond.b(loop.cond.outputs[0])}) break;",
+                  f"      const int {tag}_ctr = rng.ctr + {loop.draws} * "
+                  f"{tag}_k;"]
+        lines += ["  " + line for line in body.statements()]
+        lines += [f"      {tag}_x{j} = {body.f(r)};"
+                  for j, r in enumerate(loop.body.outputs)]
+        lines += [f"      ++{tag}_k;", "    }",
+                  f"    const int {tag}_kc = block_max_int({tag}_k);",
+                  f"    rng.ctr += {loop.draws} * {tag}_kc;",
+                  f"    loop_tally(tally, {tag}_k, {tag}_kc);"]
+        return lines
 
     def body(self, out_array=None) -> list:
         lines = self.statements()
@@ -659,6 +803,7 @@ def emit_functor(model: TracedModel) -> str:
         f"  static constexpr bool kHasMove = {str('move' in fns).lower()};",
         f"  static constexpr bool kHasPack = {str('pack' in fns).lower()};",
     ]
+    lines.append("  unsigned long long* tally;  // csrc/sweep.cuh::loop_tally")
     for key, (sig, arrays, out) in _SIGNATURES.items():
         if key in fns:
             lines += ["", f"  __device__ {sig} {{",
@@ -690,13 +835,25 @@ def evaluate(fn: TracedFn, *, rng=None, cols=(), theta=(), y_t=None, t=0):
     same device, and ``rng`` (a ``SweepRng``) moves as the callback moved
     it."""
     ys = (y_t,) if not isinstance(y_t, (tuple, list)) else tuple(y_t)
-    inputs = {"col": tuple(cols), "theta": tuple(theta), "obs": ys}
+    return _run(fn, {"col": tuple(cols), "theta": tuple(theta), "obs": ys},
+                rng, t)
+
+
+def _run(fn: TracedFn, inputs: dict, rng, t, outer=()):
+    """``evaluate`` on ``inputs`` by op; ``outer``: the enclosing
+    callback's values, for a loop's sub-traces."""
     vals = []
     for node in fn.nodes:
         op = node.op
         a = [_value(vals, r) for r in node.args]
         if op in inputs:
             v = inputs[op][node.attr]
+        elif op == "outer":
+            v = outer[node.attr]
+        elif op == "loop":
+            v = _run_loop(node.attr, a, rng, t, vals)
+        elif op == "loop_out":
+            v = a[0][node.attr]
         elif op == "time":
             v = t
         elif op == "uniform":
@@ -728,6 +885,18 @@ def evaluate(fn: TracedFn, *, rng=None, cols=(), theta=(), y_t=None, t=0):
         vals.append(v)
     outs = tuple(_value(vals, r) for r in fn.outputs)
     return outs[0] if fn.single else outs
+
+
+def _run_loop(loop: Loop, carry, rng, t, outer):
+    """A ``loop`` node run by ``rng.event_loop`` on its sub-traces."""
+    def cond_fn(c):
+        return _run(loop.cond, {"carry": c}, None, t, outer)
+
+    def body_fn(u, c):
+        return _run(loop.body, {"carry": c, "draw": u}, None, t, outer)
+
+    return rng.event_loop(cond_fn, body_fn, tuple(carry), draws=loop.draws,
+                          max_iters=loop.max_iters)
 
 
 # --- the card's check of each op ------------------------------------------
@@ -818,3 +987,61 @@ def op_zoo(cols):
         ~(x < y), torch.logical_and(x < y, y > 0.0), torch.zeros_like(x),
         torch.full_like(x, 0.3),
     )
+
+
+# The arrival loop's and the walk's iteration caps in ``loop_zoo``.
+LOOP_ZOO_CAPS = (40, 6)
+
+
+def loop_zoo():
+    """``(init, transition, log_weight)``: sweep callbacks (two state
+    columns, theta ``(a, b)``, one observation column) whose loops take
+    every case the emitted per-lane loop must get right, for the card's
+    check of K1g against the plain sweep, bit for bit and with equal loop
+    counters. ``init`` draws before its loop and counts unit-rate
+    arrivals below ``a``: a chain with ``a <= 0`` never starts it, and
+    one with ``a`` above ``LOOP_ZOO_CAPS[0]`` meets the cap. The
+    transition walks three draws an iteration while the time left ``r``,
+    started at the arrival count, is positive or ``b > 1``, reading a
+    value of its callback; lanes stop at different iterations, a chain
+    of ``b > 1`` meets the cap ``LOOP_ZOO_CAPS[1]``, and a chain of
+    ``a <= 0`` and ``b <= 1`` never loops; a draw after the loop reads
+    the counter the loop left."""
+    def init(rng, theta):
+        a = theta[0]
+
+        def running(carry):
+            return carry[1] < a
+
+        def arrive(u, carry):
+            n, s = carry
+            s = s - torch.log1p(-u[0])
+            return torch.where(s < a, n + 1.0, n), s
+
+        s0 = 0.25 * rng.uniform()
+        return rng.event_loop(running, arrive, (torch.zeros_like(s0), s0),
+                              draws=1, max_iters=LOOP_ZOO_CAPS[0])
+
+    def transition(rng, cols, theta, t):
+        n, x = cols
+        b = theta[1]
+        step = 0.5 * b + 0.25
+
+        def running(carry):
+            return (carry[0] > 0.0) | (b > 1.0)
+
+        def walk(u, carry):
+            r, x = carry
+            r = r - torch.floor(3.0 * u[0]) - 0.5
+            x = torch.where(u[1] < 0.5, x + step * u[2], x - step * u[2])
+            return r, x
+
+        r, x = rng.event_loop(running, walk, (n, x), draws=3,
+                              max_iters=LOOP_ZOO_CAPS[1])
+        return n, x + 0.125 * r + 0.01 * rng.normal()
+
+    def log_weight(cols, theta, y_t):
+        z = y_t - cols[1]
+        return -0.5 * z * z - 0.25 * cols[0]
+
+    return init, transition, log_weight

@@ -122,10 +122,12 @@ from bayesssm_tpu_torch.utils.signatures import check_params_match
 from bayesssm_tpu_torch.utils.timing import (
     PhaseTimer,
     count,
+    fold_device_tallies,
     host_copy,
     host_sync,
     span,
     spanned,
+    stage_device_tallies,
 )
 
 __all__ = [
@@ -579,7 +581,9 @@ def sample_chains(pf, state: ChainState, m: int, burn_in: int, prior_fns,
     copied to the host once, at the end. Every MH step is the key's
     :class:`_MHStep` around ``pf``: its halves replayed as CUDA graphs
     where they were captured and called directly elsewhere (module
-    docstring), with the same bits.
+    docstring), with the same bits. The counters that kernels tally on
+    the card (``utils/timing.py::DeviceTally``) are copied back behind the
+    call's work and counted after the wait that ends it.
     """
     if not isinstance(m, (int, np.integer)) or m < 1:
         raise ValueError("m must be an integer >= 1")
@@ -624,8 +628,10 @@ def sample_chains(pf, state: ChainState, m: int, burn_in: int, prior_fns,
                         se_prop, se)
                 record(s, step.theta)
         theta, ll = step.theta.clone(), step.ll.clone()
+        stage_device_tallies(dev)
         host_sync(dev, 2 + (latent is not None))
         accepted = step.accepts.cpu().numpy()
+        fold_device_tallies()
     finally:
         step.busy = False
     count("mh_steps", m - 1)

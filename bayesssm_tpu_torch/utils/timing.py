@@ -16,6 +16,17 @@
   from host memory (:func:`host_copy` for a copy to the device of what
   may already be there), ``.item()``, ``bool()`` of a device tensor,
   ``torch.nonzero`` or ``torch.cuda.synchronize``; none on the CPU.
+* :class:`DeviceTally` — counters a kernel adds into on the card (the
+  sweep op's ``sweep.loop_iters``, the lanes' own iterations of a
+  callback's ``rng.event_loop``, and ``sweep.loop_slots``, the lane-slots
+  the blocks issued for them). A launch takes the tally's values through
+  :meth:`DeviceTally.feed`, which marks the tally fed by the calling
+  thread. :func:`stage_device_tallies` queues the copy to the host of
+  the tallies the thread fed, behind the work that feeds them, and
+  :func:`fold_device_tallies`, called after a wait the caller makes
+  anyway, adds them to the thread's counters: ``sample_chains`` does both
+  around the wait that ends it, so they land in its record with no wait
+  of their own.
 * The outermost open span of a thread is the root of a call (``pmmh`` or
   ``sample_chains`` when called directly). When a root closes, its span
   aggregates and the counters' deltas over it are kept, with a call id
@@ -44,6 +55,7 @@ import torch
 import torch.autograd.profiler as _profiler
 
 __all__ = ["span", "spanned", "count", "counters", "host_sync", "host_copy",
+           "DeviceTally", "stage_device_tallies", "fold_device_tallies",
            "recent_calls", "reset", "PhaseTimer", "SPAN_PREFIX",
            "RECENT_CALLS"]
 
@@ -59,6 +71,8 @@ class _Thread(threading.local):
     def __init__(self):
         self.stack: list = []        # the open spans, outermost first
         self.counters: dict = {}     # name -> total since the thread began
+        self.fed: dict = {}          # DeviceTally -> None, fed since staged
+        self.staged: list = []       # DeviceTally staged, not yet folded
 
 
 _tls = _Thread()
@@ -177,6 +191,55 @@ def host_copy(x, device) -> None:
     copy from the host."""
     if not (isinstance(x, torch.Tensor) and x.device.type != "cpu"):
         host_sync(torch.device(device))
+
+
+class DeviceTally:
+    """Counters ``names`` that kernels on ``device`` add into: ``values``,
+    an int64 tensor there, one entry a name.
+
+    Only the tallies a thread fed (:meth:`feed`) are staged and folded by
+    that thread. A tally fed outside ``sample_chains``, as by a filter
+    called directly on the card, waits for the thread's next stage: its
+    counts then land in the record of the call that stages it.
+    """
+
+    def __init__(self, names, device):
+        self.names = tuple(names)
+        self.device = torch.device(device)
+        self.values = torch.zeros(len(self.names), dtype=torch.int64,
+                                  device=self.device)
+        self._host = torch.zeros(len(self.names), dtype=torch.int64,
+                                 pin_memory=self.device.type == "cuda")
+
+    def feed(self) -> torch.Tensor:
+        """``values``, for a launch that adds into them: the tally is the
+        calling thread's to stage."""
+        _tls.fed[self] = None
+        return self.values
+
+
+def stage_device_tallies(device) -> None:
+    """Queue, on ``device``'s current stream, the copy to the host and the
+    reset of the tallies there that the thread fed, behind the work
+    queued so far; no wait. A tally staged and not yet folded waits for
+    the next stage."""
+    device = torch.device(device)
+    for t in [t for t in _tls.fed
+              if t.device == device and t not in _tls.staged]:
+        t._host.copy_(t.values, non_blocking=True)
+        t.values.zero_()
+        del _tls.fed[t]
+        _tls.staged.append(t)
+
+
+def fold_device_tallies() -> None:
+    """Add the tallies the thread staged to its counters. Call it only
+    after the host has waited for the work queued before the stage."""
+    staged, _tls.staged = _tls.staged, []
+    for t in staged:
+        for name, v in zip(t.names, t._host.tolist()):
+            if v:
+                count(name, v)
 
 
 def recent_calls() -> list:

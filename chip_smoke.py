@@ -110,7 +110,14 @@ Phases:
     ``build_sweep_pf_impl`` at phase 21's setting, only
     ``bssm_sweep_generated`` launched, beside phase 21's engine figure;
     (e) every op the tracer maps (``sweep_codegen.op_zoo``) through its
-    generated kernel against PyTorch's CUDA ops, bit for bit;
+    generated kernel against PyTorch's CUDA ops, bit for bit; (f) loops
+    of a user's own (``rng.event_loop``): ``sweep_codegen.loop_zoo``
+    at 4096 x 128 x 10 (counts 50..128) and the LV-SSA cell's callbacks
+    (``benchmark/programs/lvssa.py``) at 4096 x 100 of 128 lanes x 15
+    intervals, each against its plain sweep on the card bit for bit, with
+    one ``bssm_sweep_generated`` launch and the card's
+    ``sweep.loop_iters``/``sweep.loop_slots`` equal to the plain sweep's,
+    both counted from zero (``loop_check``);
 23. Metropolis resampling, which bypasses K3: (a)
     ``metropolis_resample_indices`` at 4096 x 128, 256 steps, counts
     50..128, bitwise with the CPU on 512 seeded chains; ms a call and
@@ -1671,6 +1678,9 @@ def phase_generated(dev, control, engine_sv):
     if bad:
         raise AssertionError(f"op_zoo outputs {bad} differ on the card")
 
+    # (f) loops of a user's own: the loop zoo and the LV-SSA cell's op.
+    generated_loops(dev)
+
     # (d) the example's pmmh() on the sweep path, at phase 21's setting.
     fns, log_priors, transform = sv_model()
     counts, out = run_pmmh(
@@ -1686,6 +1696,102 @@ def phase_generated(dev, control, engine_sv):
         engine_samples_per_s=CHAINS * 63 / engine_sv.timings["sampling"],
         engine_tuning_s=engine_sv.timings["tuning"])
     return rows["generated_bpf"], counts
+
+LOOP_COUNTERS = ("sweep.loop_iters", "sweep.loop_slots")
+
+
+def loop_check(dev, what, op, words, ys, theta, n, lanes, reps=3):
+    """K1g with a functor that holds loops against the plain sweep of
+    ``op`` on the card, on the same inputs: bit for bit
+    (``torch.equal``), and each run's ``bssm_sweep_generated`` launches
+    and loop counters, counted from zero in a root call of its own (the
+    card's tally staged, waited for and folded inside it). Kernel ms by
+    CUDA events over ``reps`` launches, before the counted runs (a fold
+    outside any call empties the tally they fed)."""
+    from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.utils import timing
+
+    _build.build_generated(op.generated_kernel().source)
+    kernel_ms = cuda_ms(lambda: op(words, ys, theta, n, max_particles=lanes),
+                        reps, warm_s=0.0)
+    timing.stage_device_tallies(dev)
+    torch.cuda.synchronize()
+    timing.fold_device_tallies()
+    runs = []
+    for fn in (op, op.sweep_reference):
+        timing.reset()
+        launched = _build.launches[_build.GENERATED]
+        t0 = time.perf_counter()
+        with timing.span(what):
+            out = fn(words, ys, theta, n, max_particles=lanes)
+            timing.stage_device_tallies(dev)
+            torch.cuda.synchronize()
+            timing.fold_device_tallies()
+        seconds = time.perf_counter() - t0
+        (record,) = timing.recent_calls()
+        runs.append((out, _build.launches[_build.GENERATED] - launched,
+                     [record["counters"].get(k, 0) for k in LOOP_COUNTERS],
+                     seconds))
+    timing.reset()
+    (got, launches, counts, _), (want, plain_launches, plain_counts,
+                                 plain_s) = runs
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    t = ys.shape[0]
+    say(what, shape=f"{words.shape[0]}x{lanes}x{t}",
+        alive=f"{int(n.min())}..{int(n.max())}", bitwise_equal=same,
+        max_abs_err=float((got[0] - want[0]).abs().max()),
+        launches=launches, plain_launches=plain_launches,
+        loop_iters=counts[0], loop_slots=counts[1],
+        plain_loop_iters=plain_counts[0], plain_loop_slots=plain_counts[1],
+        loop_lane_share=100.0 * counts[0] / max(counts[1], 1),
+        kernel_ms=kernel_ms, plain_s=plain_s)
+    if not same:
+        raise AssertionError(f"{what}: K1g differs from the plain sweep")
+    if (launches, plain_launches) != (1, 0) or counts != plain_counts:
+        raise AssertionError(f"{what}: launches {launches}/{plain_launches}"
+                             f", loop counts {counts} against the plain "
+                             f"sweep's {plain_counts}")
+    if not 0 < counts[0] < counts[1] or not torch.isfinite(got[0]).all():
+        raise AssertionError(f"{what}: loop counts {counts}, or a "
+                             "non-finite log-likelihood")
+    return dict(ms=kernel_ms, loop_iters=counts[0], loop_slots=counts[1])
+
+
+def generated_loops(dev):
+    """Phase 22 (f): ``sweep_codegen.loop_zoo`` at 4096 x 128 x 10 with
+    counts 50..128, and the LV-SSA cell's op (``benchmark/programs/
+    lvssa.py``'s callbacks) at its size, 4096 chains x 100 of 128 lanes x
+    15 intervals, each through ``loop_check``."""
+    from benchmark.lib.spec import load_cell
+    from bayesssm_tpu_torch.ops.sweep_builder import build_sweep_op
+    from bayesssm_tpu_torch.ops.sweep_codegen import loop_zoo
+
+    rng = np.random.default_rng(43)
+    a = np.r_[0.0, 60.0, 2.0, rng.uniform(0.0, 6.0, CHAINS - 3)]
+    b = np.r_[0.5, 0.5, 1.5, rng.uniform(0.0, 1.4, CHAINS - 3)]
+    theta = torch.as_tensor(np.stack([a, b], 1).astype(np.float32),
+                            device=dev)
+    counts = torch.as_tensor(rng.integers(50, PARTICLES + 1, CHAINS)
+                             .astype(np.float32), device=dev)
+    loop_check(dev, "generated_loop_zoo", build_sweep_op(2, *loop_zoo(), 2),
+               words_for(CHAINS, 44, dev),
+               torch.linspace(-1.0, 1.0, 10, device=dev), theta, counts,
+               PARTICLES)
+
+    cell = load_cell("lvssa.sweep")
+    cfg, prog = cell.config, cell.program()
+    ys = torch.as_tensor(cell.reference().simulate(cfg), dtype=torch.float32,
+                         device=dev)
+    theta = torch.as_tensor(
+        (np.array([cfg["theta"][q] for q in prog.PARAMS]) * np.exp(
+            0.1 * rng.normal(size=(CHAINS, 3)))).astype(np.float32),
+        device=dev)
+    op = build_sweep_op(2, prog.lvssa_init, prog.lvssa_transition,
+                        prog.lv_log_weight, 3, num_obs_cols=2)
+    return loop_check(dev, "generated_lvssa", op, words_for(CHAINS, 45, dev),
+                      ys, theta, torch.full((CHAINS,), 100.0, device=dev),
+                      cell.workload["lanes"])
+
 
 def device_ops(fn):
     """``(result, count)``: ``fn()`` and the number of operators it

@@ -16,8 +16,12 @@ them and captures nothing; a second call after the cached graphs are
 dropped (``recapture``) captures them again, and its wait for the capture
 counts too. Prints one JSON line a cell, the sites with their counts
 first, the call's ``sweep.lane_days`` (chains x lanes x days its K1
-launches cover) and ``sweep.lane_transitions`` (chains x lanes x the
-transitions before the weight stages).
+launches cover), ``sweep.lane_transitions`` (chains x lanes x the
+transitions before the weight stages) and, where the callbacks run
+``rng.event_loop``, ``sweep.loop_iters`` and ``sweep.loop_slots`` (the
+lanes' own loop iterations and the lane-slots the blocks issued, which
+the card tallies and the call's last wait brings back with no wait of
+their own: its warnings still equal ``host_sync``).
 
 ``views``: for each sampling cell, ``--calls`` calls of its shape timed
 both on the benchmark's host clock (``drivers/sample_loop.py``: the
@@ -53,7 +57,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 CELLS = ("sir.sweep", "sir.engine", "sinusoidal.engine", "sir.pmmh",
-         "sv.sweep", "lv.sweep")
+         "sv.sweep", "lv.sweep", "lvssa.sweep")
 PACKAGES = ("bayesssm_tpu_torch", "benchmark")
 
 
@@ -125,6 +129,8 @@ def _debug_call(loop) -> dict:
                 graph_steps=counters.get("mh_graph.step", 0),
                 lane_days=counters.get("sweep.lane_days", 0),
                 lane_transitions=counters.get("sweep.lane_transitions", 0),
+                loop_iters=counters.get("sweep.loop_iters", 0),
+                loop_slots=counters.get("sweep.loop_slots", 0),
                 match=seen == counters.get("host_sync", 0),
                 call_s=round(wall, 3))
 

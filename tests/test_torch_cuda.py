@@ -258,6 +258,42 @@ def test_every_traced_op_rounds_as_pytorch_does(dev):
     assert not bad, f"op_zoo outputs {bad} differ"
 
 
+def test_the_loop_zoo_runs_on_the_card_as_its_plain_sweep(dev):
+    """``sweep_codegen.loop_zoo`` (every case of the emitted per-lane
+    loop) through K1g against its plain sweep on the card, bit for bit,
+    with the same loop counters."""
+    from bayesssm_tpu_torch.ops.sweep_codegen import loop_zoo
+    from bayesssm_tpu_torch.utils import timing
+
+    c = 512
+    rng = np.random.default_rng(41)
+    a = np.r_[0.0, 60.0, 2.0, rng.uniform(0.0, 6.0, c - 3)]
+    b = np.r_[0.5, 0.5, 1.5, rng.uniform(0.0, 1.4, c - 3)]
+    theta = torch.as_tensor(np.stack([a, b], 1).astype(np.float32),
+                            device=dev)
+    n = torch.as_tensor(rng.integers(50, 129, c).astype(np.float32),
+                        device=dev)
+    y = torch.linspace(-1.0, 1.0, 8, device=dev)
+    words = _words(c, 42, dev)
+    op = build_sweep_op(2, *loop_zoo(), 2)
+    runs = []
+    for fn in (op, op.sweep_reference):
+        timing.reset()
+        with timing.span("call"):
+            out = fn(words, y, theta, n, max_particles=128)
+            timing.stage_device_tallies(dev)
+            torch.cuda.synchronize(dev)
+            timing.fold_device_tallies()
+        (record,) = timing.recent_calls()
+        runs.append((out, {k: record["counters"].get(k) for k in
+                           ("sweep.loop_iters", "sweep.loop_slots")}))
+    timing.reset()
+    ((ll, est), counted), ((want_ll, want_est), want_counted) = runs
+    assert torch.isfinite(ll).all()
+    assert torch.equal(ll, want_ll) and torch.equal(est, want_est)
+    assert counted == want_counted and counted["sweep.loop_iters"] > 0
+
+
 @pytest.mark.parametrize("method", ["stratified", "systematic",
                                     "multinomial"])
 @pytest.mark.parametrize("always", [False, True])

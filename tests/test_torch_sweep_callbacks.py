@@ -431,3 +431,117 @@ def test_example_main_runs_on_the_cpu():
     assert _build.launches == before
     for arr in out.theta_chain.values():
         assert arr.shape == (2, 6) and np.isfinite(arr).all()
+
+
+# --- a callback's own event loop: the LV Gillespie callbacks ----------------
+# benchmark/programs/lvssa.py runs its Poisson start and its exact LV
+# intervals through the port's ``rng.event_loop``; the JAX builder's
+# callbacks thread the counter through a ``lax.while_loop`` (its
+# ``SweepRng`` docstring). The contract is the same: iteration k draws at
+# ctr + draws * k while a lane of the chain runs, stopped lanes keep their
+# carry, and the counter ends at ctr + draws * (iterations run).
+LVSSA_MAX = 100_000
+# Rates a tenth of the configuration's: a few dozen events a lane.
+LVSSA_THETA = [0.1, 0.0005, 0.06]
+
+
+def _j_event_loop(rng, running, step, carry, draws):
+    from jax import lax
+
+    def cond(c):
+        state, k, _ = c
+        return jnp.any(running(state)) & (k < LVSSA_MAX)
+
+    def body(c):
+        state, k, ctr = c
+        live = running(state)
+        u, ctr = rng.raw_uniform_blocks(draws, ctr)
+        new = step(tuple(u[j] for j in range(draws)), state)
+        return (tuple(jnp.where(live, a, b) for a, b in zip(new, state)),
+                k + 1, ctr)
+
+    state, _, ctr = lax.while_loop(
+        cond, body, (tuple(carry), jnp.int32(0), rng.counter()))
+    rng.set_counter(ctr)
+    return state
+
+
+def j_lvssa_init(rng, theta):
+    def poisson(mean):
+        def arrive(u, c):
+            n, s = c
+            s = s - jnp.log1p(-u[0])
+            return jnp.where(s < mean, n + 1.0, n), s
+
+        zero = jnp.zeros_like(theta[0])
+        return _j_event_loop(rng, lambda c: c[1] < mean, arrive,
+                             (zero, zero), 1)[0]
+
+    return poisson(50.0), poisson(100.0)
+
+
+def j_lvssa_transition(rng, cols, theta, t):
+    c1, c2, c3 = theta
+
+    def hazards(x1, x2):
+        h1 = c1 * x1
+        h12 = h1 + c2 * x1 * x2
+        return h1, h12, h12 + c3 * x2
+
+    def running(c):
+        return (c[2] > 0.0) & (hazards(c[0], c[1])[2] > 0.0)
+
+    def event(u, c):
+        x1, x2, r = c
+        h1, h12, h0 = hazards(x1, x2)
+        r = r + jnp.log1p(-u[0]) / h0
+        fire = r > 0.0
+        v = u[1] * h0
+        birth = fire & (v < h1)
+        predation = fire & (v >= h1) & (v < h12)
+        death = fire & (v >= h12)
+        x1 = jnp.where(birth, x1 + 1.0, jnp.where(predation, x1 - 1.0, x1))
+        x2 = jnp.where(predation, x2 + 1.0, jnp.where(death, x2 - 1.0, x2))
+        return x1, x2, r
+
+    x1, x2 = cols
+    x1, x2, _ = _j_event_loop(rng, running, event,
+                              (x1, x2, jnp.full_like(x1, 2.0)), 2)
+    return x1, x2
+
+
+def j_lv_log_weight(cols, theta, y_t):
+    z1 = (y_t[0] - cols[0]) / 10.0
+    z2 = (y_t[1] - cols[1]) / 10.0
+    return (-2.0 * (0.5 * np.log(2.0 * np.pi) + np.log(10.0))
+            - 0.5 * (z1 * z1 + z2 * z2))
+
+
+def test_event_loop_callbacks_match_jax_per_key():
+    """The LV Gillespie callbacks through the port's plain sweep against
+    the JAX builder with counter-threaded ``lax.while_loop`` callbacks,
+    un-vmapped, per key, to 1e-4; one observation, 100 of 128 lanes."""
+    from benchmark.programs import lvssa
+
+    params = list(lvssa.PARAMS)
+    ys = np.array([[45.0, 95.0]], np.float32)
+    args = (ys, 100, params, None, None, "BPF", "SISAR", "stratified",
+            False)
+    j_pf = j_build_sweep_pf_impl(
+        2, j_lvssa_init, j_lvssa_transition, j_lv_log_weight, params,
+        interpret=True, num_obs_cols=2)(*args, max_particles=N)
+    kd = _key_words(60, 2)
+    f = jax.jit(lambda w: j_pf(jax.random.wrap_key_data(w),
+                               jnp.asarray(LVSSA_THETA, jnp.float32)))
+    outs = [f(jnp.asarray(w)) for w in kd]
+    pf = lvssa.lvssa_pf_impl()(*args, max_particles=N)
+    ll, est = pf(torch.as_tensor(kd.astype(np.int64)),
+                 torch.tensor([LVSSA_THETA]).expand(2, 3), 100)
+    assert torch.isfinite(ll).all()
+    np.testing.assert_allclose(ll.numpy(), [float(o[0]) for o in outs],
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(est.numpy(),
+                               np.stack([np.asarray(o[1]) for o in outs]),
+                               rtol=0, atol=1e-4)
+    # The start and the interval moved the state: events fired.
+    assert not np.allclose(est.numpy()[:, 0], est.numpy()[:, 1])

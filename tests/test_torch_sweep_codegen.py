@@ -147,6 +147,83 @@ def test_op_zoo_evaluates_bitwise_on_the_cpu():
     assert probe.shape == (512, len(want)) and probe.dtype == torch.float32
 
 
+def _loop_zoo_inputs(c, n):
+    """Theta ``[C, 2]`` and ``(arrival counts, walk positions)``: chain 0
+    never loops, chain 1 meets the arrival cap, chain 2 the walk's, the
+    rest spread."""
+    rng = np.random.default_rng(31)
+    a = np.r_[0.0, 60.0, 2.0, rng.uniform(0.0, 6.0, c - 3)]
+    b = np.r_[0.5, 0.5, 1.5, rng.uniform(0.0, 1.4, c - 3)]
+    theta = torch.as_tensor(np.stack([a, b], 1).astype(np.float32))
+    counts = rng.poisson(np.maximum(a, 0.0)[:, None], (c, n))
+    counts[0] = 0
+    cols = (torch.as_tensor(counts.astype(np.float32)),
+            torch.as_tensor(rng.normal(0.0, 1.0, (c, n)).astype(np.float32)))
+    return theta, cols
+
+
+@pytest.mark.parametrize("key", ["init", "transition", "log_weight"])
+def test_the_loop_zoo_evaluates_as_its_callbacks(key):
+    """``loop_zoo``'s traced IR, run by the evaluator, equals its
+    callbacks bit for bit, with the same counters and loop counts, and
+    its inputs reach each case the card's check is for."""
+    from bayesssm_tpu_torch.utils import timing
+
+    c, n = 8, 16
+    fns = dict(zip(("init", "transition", "log_weight"), cg.loop_zoo()))
+    op = build_sweep_op(2, *cg.loop_zoo(), 2)
+    traced = op.trace().fns[key]
+    theta, cols = _loop_zoo_inputs(c, n)
+    th = tuple(x[:, None].expand(c, n) for x in theta.unbind(1))
+    keys = lane_keys(torch.arange(2 * c).reshape(c, 2), n)
+    runs = []
+    for use_ir in (True, False):
+        rng = SweepRng(keys)
+        args = dict(init=dict(rng=rng, theta=th),
+                    transition=dict(rng=rng, cols=cols, theta=th, t=2),
+                    log_weight=dict(cols=cols, theta=th,
+                                    y_t=torch.tensor(0.5)))[key]
+        timing.reset()
+        with timing.span("call"):
+            out = (cg.evaluate(traced, **args) if use_ir
+                   else fns[key](*args.values()))
+        (record,) = timing.recent_calls()
+        timing.reset()
+        out = out if isinstance(out, tuple) else (out,)
+        runs.append((out, rng.counter(), record["counters"]))
+    (got, ctr, counted), (want, want_ctr, want_counted) = runs
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    assert torch.equal(ctr, want_ctr) and counted == want_counted
+    ran = ctr[:, 0]
+    if key == "init":
+        # One draw before the loop, then one an iteration.
+        assert int(ran[0]) == 1
+        assert int(ran[1]) == 1 + cg.LOOP_ZOO_CAPS[0]
+        assert int(got[0][1].max()) < 60
+    elif key == "transition":
+        # Three draws an iteration, then the normal's two.
+        assert int(ran[0]) == 2
+        assert int(ran[2]) == 3 * cg.LOOP_ZOO_CAPS[1] + 2
+        assert len(set(((ran[3:] - 2) // 3).tolist())) > 1
+    else:
+        assert "sweep.loop_iters" not in counted
+    if key != "log_weight":
+        assert 0 < counted["sweep.loop_iters"] < counted["sweep.loop_slots"]
+
+
+def test_the_loop_zoo_sweeps_on_the_cpu():
+    op = build_sweep_op(2, *cg.loop_zoo(), 2)
+    theta, _ = _loop_zoo_inputs(16, 1)
+    words = torch.arange(32).reshape(16, 2)
+    y = torch.linspace(-1.0, 1.0, 5)
+    ll, est = op(words, y, theta, torch.full((16,), 100.0),
+                 max_particles=128)
+    assert torch.isfinite(ll).all() and est.shape == (16, 6, 2)
+    src = op.generated_kernel().source
+    assert src.count("while (") == 2 == src.count("loop_tally(")
+
+
 def _sv_op(**kw):
     return build_sweep_op(1, EX.sv_init, EX.sv_transition, EX.sv_log_weight,
                           3, **kw)

@@ -247,3 +247,69 @@ def test_sample_chains_counts_its_steps_and_the_host_waits_of_a_cpu_run(
     assert call["spans"]["sample_chains/mh_step"]["count"] == 4
     assert call["spans"]["sample_chains/filter"]["count"] == 1
     assert call["spans"]["sample_chains/mh_step/filter"]["count"] == 4
+
+
+def test_a_device_tally_lands_in_the_call_that_folds_it():
+    """A tally's values reach the counters only at a fold after a stage,
+    inside the root call that folds them, and the stage empties it."""
+    tally = timing.DeviceTally(("loop.a", "loop.b"), "cpu")
+    with span("first"):
+        tally.feed().add_(torch.tensor([3, 40]))
+        timing.fold_device_tallies()          # nothing staged yet
+        timing.stage_device_tallies("cpu")
+        tally.feed().add_(torch.tensor([1, 1]))  # after the stage: next call
+        timing.fold_device_tallies()
+    with span("second"):
+        timing.stage_device_tallies("cpu")
+        timing.fold_device_tallies()
+        timing.fold_device_tallies()          # a fold takes a stage once
+    first, second = timing.recent_calls()
+    assert first["counters"] == {"loop.a": 3, "loop.b": 40}
+    assert second["counters"] == {"loop.a": 1, "loop.b": 1}
+    assert not tally.values.any()
+
+
+def test_a_thread_stages_only_the_tallies_it_fed():
+    """A tally the thread has not fed since its last stage, or that
+    another thread fed, stays on its device; a tally staged and not yet
+    folded waits for the next stage."""
+    mine = timing.DeviceTally(("tally.mine",), "cpu")
+    theirs = timing.DeviceTally(("tally.theirs",), "cpu")
+    unfed = timing.DeviceTally(("tally.unfed",), "cpu")
+    unfed.values += 5
+    worker = threading.Thread(target=lambda: theirs.feed().add_(9))
+    worker.start()
+    worker.join()
+    with span("call"):
+        mine.feed().add_(2)
+        timing.stage_device_tallies("cpu")
+        mine.feed().add_(4)
+        timing.stage_device_tallies("cpu")    # staged, not folded: waits
+        timing.fold_device_tallies()
+    with span("next"):
+        timing.stage_device_tallies("cpu")
+        timing.fold_device_tallies()
+    first, second = timing.recent_calls()
+    assert first["counters"] == {"tally.mine": 2}
+    assert second["counters"] == {"tally.mine": 4}
+    assert int(theirs.values) == 9 and int(unfed.values) == 5
+
+
+def test_sample_chains_folds_the_device_tallies_at_its_end():
+    from bayesssm_tpu_torch.pmmh.driver import init_chain_state, sample_chains
+
+    tally = timing.DeviceTally(("loop.iters",), "cpu")
+
+    def pf(seed_words, theta, n):
+        tally.feed().add_(7)
+        return torch.zeros(theta.shape[0]), torch.zeros(theta.shape[0], 2)
+
+    state = init_chain_state(np.float32([0.5]), np.full((2, 1, 1), 0.1,
+                                                        np.float32),
+                             16, 3, "cpu")
+    prior = [lambda x: torch.zeros_like(x)]
+    sample_chains(pf, state, 4, 0, prior, ("identity",))
+    (call,) = timing.recent_calls()
+    # The initial evaluation and three MH steps.
+    assert call["counters"]["loop.iters"] == 4 * 7
+    assert "host_sync" not in call["counters"]
