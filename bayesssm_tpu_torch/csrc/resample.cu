@@ -38,6 +38,18 @@
 // writes its CDF (1.5 from the last alive lane on) to shared memory, runs
 // its upper-bound searches interleaved, and writes the gathered row as
 // consecutive floats.
+//
+// The engine's day. Given the day's pointers (FusedArgs::ll_out and the
+// rest), the same launch does the whole weight step of the engine's day
+// (bayesssm_tpu_torch/filters/core.py): it masks the lanes at or above the
+// chain's count to -inf and clamps at -1e30 as it loads the raw
+// log-weights, marks the chain dead when their max is below -1e8, adds
+// lse - log n to the running log-likelihood (-inf once dead), writes the
+// ESS record (the count after a resample, 0 once dead), zeroes a dead
+// chain's weights, and sums the state estimate sum_l w_l x[l, :] of the
+// output weights and rows in the halving tree. These are per-chain values
+// the kernel already holds, so a day adds a few bytes a chain and no pass
+// over [C, N]; the plain version restates each step in this order.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -61,20 +73,64 @@ constexpr int kSearchGroup = 8;
 // Shared memory a block may take (opt-in above 48 KB).
 constexpr int kMaxSharedBytes = 227 * 1024;
 
+// Clamp of the masked log-weights, and the engine's degenerate bound.
+constexpr float kFusedFloor = -1e30f;
+constexpr float kDegenerate = -1e8f;
+
 struct FusedArgs {
   const float* lw;
   const float* parts;
   const float* pos;
   const float* uni;
   const float* thr;
-  const int* seeds;
+  const long long* words;  // [C, 2] uint32 key words as int64, rows apart
+  long long word_stride;   // by word_stride
   const float* alive;
   float* pout;
   float* wout;
   float* ess;
   float* lse;
+  // The engine's day (all null outside it; est may be null in it): the
+  // running log-likelihood in and out, the dead flags (in place), log n,
+  // the ESS record and the [C, D] state estimate.
+  const float* ll_in;
+  float* ll_out;
+  bool* dead;
+  const float* log_n;
+  float* ess_rec;
+  float* est;
   int C, N, D, method, always;
 };
+
+// Lane l's log-weight on the engine's day: -inf at or above the chain's
+// count (as the engine's `alive` compares), then clamped at -1e30 with
+// clamp_min's rule (NaN stays).
+__device__ __forceinline__ float day_log_weight(float v, int l, float alive) {
+  if (!((float)l < alive)) v = -INFINITY;
+  return v < kFusedFloor ? kFusedFloor : v;
+}
+
+// The chain's key words: the low 32 bits of its two int64 words (the
+// words hold uint32 values), read as such.
+__device__ __forceinline__ void chain_words(const FusedArgs& a, int c,
+                                            uint32_t& s0, uint32_t& s1) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(
+      a.words + (size_t)c * (size_t)a.word_stride);
+  s0 = w[0];
+  s1 = w[2];
+}
+
+// The day's per-chain outputs, by one thread: the dead flag, the running
+// log-likelihood (ll + (lse - log n), the engine's order) and the ESS
+// record. The flag is only ever set, so a lane that reads it after this
+// write computes the same `dead` as one that reads it before.
+__device__ __forceinline__ void write_day(const FusedArgs& a, int c, float lse,
+                                          float ess, bool dead,
+                                          bool resampled, float alive) {
+  if (dead) a.dead[c] = true;
+  a.ll_out[c] = dead ? -INFINITY : a.ll_in[c] + (lse - a.log_n[c]);
+  a.ess_rec[c] = dead ? 0.0f : (resampled ? alive : ess);
+}
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
@@ -103,8 +159,41 @@ __device__ __forceinline__ void gather_rows(float* out, const float* row,
   }
 }
 
-template <int V, bool kRow>
-__global__ void __launch_bounds__(256) fused_resample_kernel(FusedArgs a) {
+// Lane l's term of column j of the engine's day's state estimate, read
+// back once the chain's outputs are written: the output weight this
+// thread wrote times row[m D + j], m the ancestor whose bits `anc` holds
+// at lane l (l itself for a kept chain, anc null). Nothing is held in
+// registers for it through the step, nor from one column's tree to the
+// next.
+__device__ __forceinline__ float estimate_term(const FusedArgs& a, int c,
+                                               int l, int j, const float* row,
+                                               const float* anc) {
+  if (l >= a.N) return 0.0f;
+  const int m = anc != nullptr ? __float_as_int(anc[l]) : l;
+  return a.wout[(size_t)c * a.N + l] * row[m * a.D + j];
+}
+
+// The state estimate over the warp's lanes: column j sums the lanes'
+// terms in the halving tree (lanes past N add 0), one tree a column.
+template <int V>
+__device__ __forceinline__ void warp_estimate(const FusedArgs& a, int c,
+                                              const float* row,
+                                              const float* anc) {
+  const int t = threadIdx.x & 31;
+#pragma unroll 1  // one column's tree at a time
+  for (int j = 0; j < a.D; ++j) {
+    float p[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      p[k] = estimate_term(a, c, t + 32 * k, j, row, anc);
+    }
+    const float e = warp_tree(p, SumOp{});
+    if (t == 0) a.est[(size_t)c * a.D + j] = e;
+  }
+}
+
+template <int V, bool kRow, bool kDay>
+__device__ __forceinline__ void fused_warp(const FusedArgs& a) {
   extern __shared__ float smem[];
   constexpr int P = 32 * V;
   const int t = threadIdx.x & 31, wi = threadIdx.x >> 5;
@@ -122,22 +211,22 @@ __global__ void __launch_bounds__(256) fused_resample_kernel(FusedArgs a) {
   }
   const float thr = a.thr[c];
   const bool drawn = a.method != kHostPositions;
+  constexpr bool day = kDay;
   uint32_t s0 = 0, s1 = 0;
   float alive = 0.0f;
-  if (drawn) {
-    s0 = (uint32_t)a.seeds[2 * c];
-    s1 = (uint32_t)a.seeds[2 * c + 1];
-    alive = a.alive[c];
-  }
+  if (drawn) chain_words(a, c, s0, s1);
+  if (drawn || day) alive = a.alive[c];
   float x[V], u[V];
 #pragma unroll
   for (int k = 0; k < V; ++k) {
     const int l = t + 32 * k;
     x[k] = l < N ? a.lw[row + l] : -INFINITY;
+    if (day && l < N) x[k] = day_log_weight(x[k], l, alive);
     u[k] = l < N ? a.uni[row + l] : 0.0f;
   }
 
   const float mx = warp_tree(x, MaxOp{});
+  const bool dead = day && (a.dead[c] || mx < kDegenerate);
 #pragma unroll
   for (int k = 0; k < V; ++k) {
     x[k] = t + 32 * k < N ? expf(x[k] - mx) : 0.0f;
@@ -150,15 +239,19 @@ __global__ void __launch_bounds__(256) fused_resample_kernel(FusedArgs a) {
     sq[k] = x[k] * x[k];
   }
   const float ess = 1.0f / warp_tree(sq, SumOp{});
+  const bool keep = !(a.always || ess < thr);  // uniform over the warp
   if (t == 0) {
+    const float lse = mx + logf(s);
     a.ess[c] = ess;
-    a.lse[c] = mx + logf(s);
+    a.lse[c] = lse;
+    if (day) write_day(a, c, lse, ess, dead, !keep, alive);
   }
 
-  if (!(a.always || ess < thr)) {  // uniform over the warp
+  if (keep) {
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       const int l = t + 32 * k;
+      if (dead) x[k] = 0.0f;
       if (l < N) a.wout[row + l] = x[k];
     }
     if (kRow) {
@@ -167,6 +260,9 @@ __global__ void __launch_bounds__(256) fused_resample_kernel(FusedArgs a) {
       for (int i = t; i < nd; i += 32) orow[i] = row_s[i];
     } else {
       for (int i = t; i < nd; i += 32) orow[i] = prow[i];
+    }
+    if (day && a.est != nullptr) {
+      warp_estimate<V>(a, c, kRow ? row_s : prow, nullptr);
     }
     return;
   }
@@ -177,6 +273,7 @@ __global__ void __launch_bounds__(256) fused_resample_kernel(FusedArgs a) {
   for (int k = 0; k < V; ++k) {
     const int l = t + 32 * k;
     if (l < N && u[k] > 0.0f) last = l;
+    if (dead) u[k] = 0.0f;
     if (l < N) a.wout[row + l] = u[k];
   }
   last = __reduce_max_sync(kAllLanes, last);
@@ -228,9 +325,43 @@ __global__ void __launch_bounds__(256) fused_resample_kernel(FusedArgs a) {
   if (kRow) cp_async_wait_all();
   __syncwarp();
   gather_rows(orow, kRow ? row_s : prow, cdf_s, nd, D);
+  if (day && a.est != nullptr) {
+    warp_estimate<V>(a, c, kRow ? row_s : prow, cdf_s);
+  }
+}
+
+// Blocks of 256 threads an SM the warp form is held to, so that its
+// registers are set here and not by ptxas's default caps, which spilled a
+// few bytes at some lane counts: up to 128 lanes 6 (40 registers, 48
+// warps an SM), or 5 for the engine's day at 128 lanes (48 registers, 40
+// warps); from 256 lanes 1, what the kernel needs (72 to 248 registers).
+__host__ __device__ constexpr int k3_min_blocks(int v, bool day) {
+  return v > 4 ? 1 : (day && v == 4 ? 5 : 6);
+}
+
+// K3's warp form: the step alone, and the engine's day, each its own
+// kernel, so that the step holds none of the day's code or registers.
+template <int V, bool kRow>
+__global__ void __launch_bounds__(256, k3_min_blocks(V, false))
+    fused_resample_kernel(FusedArgs a) {
+  fused_warp<V, kRow, false>(a);
+}
+template <int V, bool kRow>
+__global__ void __launch_bounds__(256, k3_min_blocks(V, true))
+    fused_resample_day(FusedArgs a) {
+  fused_warp<V, kRow, true>(a);
+}
+using FusedKernel = void (*)(FusedArgs);
+template <int V, bool kRow, bool kDay>
+FusedKernel warp_kernel() {
+  return kDay ? &fused_resample_day<V, kRow> : &fused_resample_kernel<V, kRow>;
 }
 
 constexpr int kTeamV = 4;
+// Resident warps an SM the team form's engine day is held to (its
+// registers at most 65536 / (32 * 40) = 51, so 48 as allocated), those of
+// the step alone: the day adds no register to the step's.
+constexpr int kTeamWarpsPerSm = 40;
 
 // The team form (lane bounds of 256 and more; the launchers' table takes
 // it from 512 on): one chain a block of W = P / 128 warps, 4 lanes a
@@ -264,15 +395,36 @@ __device__ __forceinline__ float team_tree(const float (&x)[kTeamV], Op op,
   return warp_tree(y, op);
 }
 
+// The state estimate over the team's lanes (as warp_estimate), one team
+// tree a column, the trees' exchange buffers taken in turns so that a
+// tree's stores never meet the last one's loads.
+template <int W>
+__device__ __forceinline__ void team_estimate(const FusedArgs& a, int c,
+                                              const float* row,
+                                              const float* anc, float* buf0,
+                                              float* buf1) {
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll 1  // one column's tree at a time
+  for (int j = 0; j < a.D; ++j) {
+    float p[kTeamV];
+#pragma unroll
+    for (int k = 0; k < kTeamV; ++k) {
+      p[k] = estimate_term(a, c, 128 * w + 32 * k + t, j, row, anc);
+    }
+    const float e = team_tree<W>(p, SumOp{}, j & 1 ? buf0 : buf1);
+    if (threadIdx.x == 0) a.est[(size_t)c * a.D + j] = e;
+  }
+}
+
 // The doubling scan over the team: the in-warp levels (s <= 64) run over
 // the previous warp's raw registers and this warp's (warp_scan_add<8, 4>),
 // which is exact for this warp's lanes, whose windows reach back at most
 // 127 lanes; the levels s >= 128 are a doubling scan over the W warps at
 // each position, after a second exchange, and the max of the warps before
 // this one seeds its running max. Seven barriers a resampling chain, three
-// a kept one.
-template <int W>
-__global__ void __launch_bounds__(32 * W) fused_resample_team(FusedArgs a) {
+// a kept one (and one more, then one a column, for the day's estimate).
+template <int W, bool kDay>
+__device__ __forceinline__ void fused_team(const FusedArgs& a) {
   constexpr int V = kTeamV, P = 128 * W, S = 32 * W;
   extern __shared__ float smem[];
   const int t = threadIdx.x & 31, w = threadIdx.x >> 5, tid = threadIdx.x;
@@ -290,21 +442,21 @@ __global__ void __launch_bounds__(32 * W) fused_resample_team(FusedArgs a) {
   for (int i = tid; i < nd; i += S) cp_async4(row_s + i, prow + i);
   const float thr = a.thr[c];
   const bool drawn = a.method != kHostPositions;
+  constexpr bool day = kDay;
   uint32_t s0 = 0, s1 = 0;
   float alive = 0.0f;
-  if (drawn) {
-    s0 = (uint32_t)a.seeds[2 * c];
-    s1 = (uint32_t)a.seeds[2 * c + 1];
-    alive = a.alive[c];
-  }
+  if (drawn) chain_words(a, c, s0, s1);
+  if (drawn || day) alive = a.alive[c];
   float x[V], u[V];
 #pragma unroll
   for (int k = 0; k < V; ++k) {
     const int l = 128 * w + 32 * k + t;
     x[k] = l < N ? a.lw[row + l] : -INFINITY;
+    if (day && l < N) x[k] = day_log_weight(x[k], l, alive);
     u[k] = l < N ? a.uni[row + l] : 0.0f;
   }
   const float mx = team_tree<W>(x, MaxOp{}, buf0);
+  const bool dead = day && (a.dead[c] || mx < kDegenerate);
 #pragma unroll
   for (int k = 0; k < V; ++k) {
     x[k] = 128 * w + 32 * k + t < N ? expf(x[k] - mx) : 0.0f;
@@ -317,18 +469,26 @@ __global__ void __launch_bounds__(32 * W) fused_resample_team(FusedArgs a) {
     sq[k] = x[k] * x[k];
   }
   const float ess = 1.0f / team_tree<W>(sq, SumOp{}, buf0);
+  const bool keep = !(a.always || ess < thr);  // uniform over the block
   if (tid == 0) {
+    const float lse = mx + logf(s);
     a.ess[c] = ess;
-    a.lse[c] = mx + logf(s);
+    a.lse[c] = lse;
+    if (day) write_day(a, c, lse, ess, dead, !keep, alive);
   }
-  if (!(a.always || ess < thr)) {
+  if (keep) {
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       const int l = 128 * w + 32 * k + t;
+      if (dead) x[k] = 0.0f;
       if (l < N) a.wout[row + l] = x[k];
     }
     cp_async_wait_all();  // each thread copies what it staged
     for (int i = tid; i < nd; i += S) orow[i] = row_s[i];
+    if (day && a.est != nullptr) {
+      __syncthreads();  // the estimate reads every thread's staged floats
+      team_estimate<W>(a, c, row_s, nullptr, buf0, buf1);
+    }
     return;
   }
   int last = 0;
@@ -336,6 +496,7 @@ __global__ void __launch_bounds__(32 * W) fused_resample_team(FusedArgs a) {
   for (int k = 0; k < V; ++k) {
     const int l = 128 * w + 32 * k + t;
     if (l < N && u[k] > 0.0f) last = l;
+    if (dead) u[k] = 0.0f;
     if (l < N) a.wout[row + l] = u[k];
   }
   last = __reduce_max_sync(kAllLanes, last);
@@ -427,6 +588,21 @@ __global__ void __launch_bounds__(32 * W) fused_resample_team(FusedArgs a) {
       ++slot;
     }
   }
+  if (day && a.est != nullptr) {
+    team_estimate<W>(a, c, row_s, src_s, buf0, buf1);
+  }
+}
+
+// K3's team form: the step alone, and the engine's day held to the
+// step's registers (kTeamWarpsPerSm).
+template <int W>
+__global__ void __launch_bounds__(32 * W) fused_resample_team(FusedArgs a) {
+  fused_team<W, false>(a);
+}
+template <int W>
+__global__ void __launch_bounds__(32 * W, kTeamWarpsPerSm / W)
+    fused_resample_team_day(FusedArgs a) {
+  fused_team<W, true>(a);
 }
 
 // The selection alone: row r of R, one warp, its N <= 32 V positions in
@@ -521,19 +697,27 @@ cudaError_t launch_warps(Kernel kernel, int rows, int wpb, size_t seg_bytes,
                        seg_bytes * wpb, stream, args);
 }
 
-template <int V>
-cudaError_t launch_fused_v(const FusedArgs& a, int wpb, bool stage,
-                           cudaStream_t stream) {
+template <int V, bool kDay>
+cudaError_t launch_fused_vd(const FusedArgs& a, int wpb, bool stage,
+                            cudaStream_t stream) {
   const void* args[] = {&a};
   const size_t row_bytes = sizeof(float) * fused_segment(32 * V, a.N * a.D,
                                                          true);
   if (stage && row_bytes <= (size_t)kMaxSharedBytes) {
-    return launch_warps(fused_resample_kernel<V, true>, a.C, wpb, row_bytes,
+    return launch_warps(warp_kernel<V, true, kDay>(), a.C, wpb, row_bytes,
                         stream, args);
   }
-  return launch_warps(fused_resample_kernel<V, false>, a.C, wpb,
+  return launch_warps(warp_kernel<V, false, kDay>(), a.C, wpb,
                       sizeof(float) * fused_segment(32 * V, 0, false), stream,
                       args);
+}
+
+// The engine's day (FusedArgs::ll_out given) takes its own kernels.
+template <int V>
+cudaError_t launch_fused_v(const FusedArgs& a, int wpb, bool stage,
+                           cudaStream_t stream) {
+  return a.ll_out != nullptr ? launch_fused_vd<V, true>(a, wpb, stage, stream)
+                             : launch_fused_vd<V, false>(a, wpb, stage, stream);
 }
 
 // K3's warp form with `wpb` chains a block, the particle row staged in
@@ -560,8 +744,12 @@ __host__ constexpr size_t team_bytes(int w, int nd) {
 template <int W>
 cudaError_t launch_team(const FusedArgs& a, cudaStream_t stream) {
   const void* args[] = {&a};
-  return launch_blocks(fused_resample_team<W>, a.C, 32 * W,
-                       team_bytes(W, a.N * a.D), stream, args);
+  const size_t smem = team_bytes(W, a.N * a.D);
+  return a.ll_out != nullptr
+             ? launch_blocks(fused_resample_team_day<W>, a.C, 32 * W, smem,
+                             stream, args)
+             : launch_blocks(fused_resample_team<W>, a.C, 32 * W, smem,
+                             stream, args);
 }
 
 // K3's team form (lane bounds of 256 and more); a row too long for a
@@ -578,6 +766,18 @@ inline cudaError_t launch_fused_team(const FusedArgs& a, cudaStream_t stream) {
     case 4: return launch_team<4>(a, stream);
     default: return launch_team<8>(a, stream);
   }
+}
+
+// The staged warp form and the team form, for bssm_fused_resample_info.
+template <int V>
+const void* warp_fn(int day) {
+  return day ? (const void*)fused_resample_day<V, true>
+             : (const void*)fused_resample_kernel<V, true>;
+}
+template <int W>
+const void* team_fn(int day) {
+  return day ? (const void*)fused_resample_team_day<W>
+             : (const void*)fused_resample_team<W>;
 }
 
 // K3 as the fixed table sends it.
@@ -619,26 +819,42 @@ extern "C" {
 
 // C chains of N <= 1024 lanes and D state columns laid out [C, N, D].
 // method: -1 takes `pos` [C, N]; 0/1/2 draw stratified/systematic/
-// multinomial positions from `seeds` [C, 2] and `alive` [C].
+// multinomial positions from `words` (each chain's two uint32 key words in
+// int64, rows `word_stride` apart) and `alive` [C]. With `ll_out`, the
+// launch is the engine's whole day (the FusedArgs note): `alive`, `ll_in`,
+// `dead`, `log_n` and `ess_rec` [C] are then required, `est` [C, D] is
+// optional, and `lw` holds the raw log-weights.
 int bssm_fused_resample(const float* lw, const float* parts, const float* pos,
-                        const float* uni, const float* thr, const int* seeds,
+                        const float* uni, const float* thr,
+                        const long long* words, long long word_stride,
                         const float* alive, float* pout, float* wout,
-                        float* ess, float* lse, int C, int N, int D,
+                        float* ess, float* lse, const float* ll_in,
+                        float* ll_out, bool* dead, const float* log_n,
+                        float* ess_rec, float* est, int C, int N, int D,
                         int method, int always, void* stream) {
   if (C < 1 || N < 1 || N > 1024 || D < 1 || method < -1 || method > 2) {
     return (int)cudaErrorInvalidValue;
   }
-  if (method == -1 ? pos == nullptr : (seeds == nullptr || alive == nullptr)) {
+  if (method == -1 ? pos == nullptr : (words == nullptr || alive == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const bssm::FusedArgs a{lw,  parts, pos, uni, thr, seeds,  alive, pout,
-                          wout, ess, lse, C,   N,   D,     method, always};
+  if (ll_out != nullptr &&
+      (alive == nullptr || ll_in == nullptr || dead == nullptr ||
+       log_n == nullptr || ess_rec == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bssm::FusedArgs a{lw,    parts, pos,   uni,    thr,     words,
+                          word_stride,  alive, pout,   wout,    ess,
+                          lse,   ll_in, ll_out, dead,  log_n,   ess_rec,
+                          est,   C,     N,     D,      method,  always};
   return (int)bssm::launch_fused(a, (cudaStream_t)stream);
 }
 
 // Registers per thread and resident warps per SM of K3 at n lanes and d
-// columns, in the form and block the launcher picks.
-int bssm_fused_resample_info(int n, int d, int* regs, int* warps_per_sm) {
+// columns, in the form and block the launcher picks, for the step alone
+// (day 0) or the engine's day (day 1).
+int bssm_fused_resample_info(int n, int d, int day, int* regs,
+                             int* warps_per_sm) {
   if (n < 1 || n > 1024 || d < 1) return (int)cudaErrorInvalidValue;
   const int v = bssm::lanes_v(n);
   const void* fn = nullptr;
@@ -648,20 +864,19 @@ int bssm_fused_resample_info(int n, int d, int* regs, int* warps_per_sm) {
       bssm::team_bytes(v / 4, n * d) <= (size_t)bssm::kMaxSharedBytes) {
     warps = v / 4;
     smem = bssm::team_bytes(warps, n * d);
-    fn = v == 16 ? (const void*)bssm::fused_resample_team<4>
-                 : (const void*)bssm::fused_resample_team<8>;
+    fn = v == 16 ? bssm::team_fn<4>(day) : bssm::team_fn<8>(day);
   } else {
     const size_t seg =
         sizeof(float) * (size_t)bssm::fused_segment(32 * v, n * d, true);
     warps = bssm::fitting_warps(bssm::k3_warps_per_block(v), seg);
     smem = seg * warps;
     switch (v) {
-      case 1: fn = (const void*)bssm::fused_resample_kernel<1, true>; break;
-      case 2: fn = (const void*)bssm::fused_resample_kernel<2, true>; break;
-      case 4: fn = (const void*)bssm::fused_resample_kernel<4, true>; break;
-      case 8: fn = (const void*)bssm::fused_resample_kernel<8, true>; break;
-      case 16: fn = (const void*)bssm::fused_resample_kernel<16, true>; break;
-      default: fn = (const void*)bssm::fused_resample_kernel<32, true>;
+      case 1: fn = bssm::warp_fn<1>(day); break;
+      case 2: fn = bssm::warp_fn<2>(day); break;
+      case 4: fn = bssm::warp_fn<4>(day); break;
+      case 8: fn = bssm::warp_fn<8>(day); break;
+      case 16: fn = bssm::warp_fn<16>(day); break;
+      default: fn = bssm::warp_fn<32>(day);
     }
   }
   cudaFuncAttributes attr;

@@ -49,6 +49,13 @@ with the JAX engine's message.
 
 A fused step launches its CUDA kernel on CUDA tensors and runs its plain
 version on CPU tensors; no value selects the plain version on the card.
+On a fused route in float32 without ``carry_weights``, that one call is
+the day's whole weight step: it takes the raw log-weights and the running
+log-likelihood and dead flags, and returns the log-likelihood, the ESS
+record, the zeroed weights of dead chains and (but for RMPF, whose move
+comes after it) the state estimate, so no PyTorch op runs between the
+weight function and the next day's transition (``engine.k3_days`` counts
+such a day, RMPF's too).
 
 **APF.** After the gap loop the auxiliary log-weights select ancestors
 (a forced resample drawn from ``k_aux``), the particles take a second
@@ -104,6 +111,7 @@ from bayesssm_tpu_torch.ops.resampling import (
     sharded_resample_indices,
 )
 from bayesssm_tpu_torch.ops.resampling_fused import (
+    FUSED_FLOOR,
     MAX_FUSED_LANES,
     fused_weight_resample,
     fused_weight_resample_seeded,
@@ -114,15 +122,13 @@ from bayesssm_tpu_torch.ops.weights import (
     normalize_log_weights,
 )
 from bayesssm_tpu_torch.utils.signatures import adapt_fn, adapt_move_fn
-from bayesssm_tpu_torch.utils.timing import host_copy, span, spanned
+from bayesssm_tpu_torch.utils.timing import count, host_copy, span, spanned
 
 __all__ = ["particle_filter_core", "FilterResult", "FilterConfig",
            "obs_times_to_gaps"]
 
 ALGORITHMS = ("BPF", "APF", "RMPF")
 RESAMPLE_ALGORITHMS = ("SIS", "SISR", "SISAR")
-# Clamp for -inf log-weights entering the fused weight step.
-_FUSED_FLOOR = -1e30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -419,16 +425,27 @@ def particle_filter_core(
         fused_enabled = False
     always_resample = algorithm == "RMPF" or resample_algorithm == "SISR"
     zero_thr = torch.zeros_like(n_f)
+    thr_arg = thr if thr is not None else zero_thr
 
-    def fused_step(lw_safe, p3, key_words, thr_arg, always):
-        """K3 (or its plain version) on ``[C, N, d]`` particles."""
+    def fused_step(lw_safe, p3, key_words, threshold, always, **day):
+        """K3 (or its plain version) on ``[C, N, d]`` particles; ``day``
+        holds the engine's day arguments where K3 takes the whole day."""
         if inkernel_rng:
             return fused_weight_resample_seeded(
-                lw_safe, p3, key_words, n_f, uniform_w, thr_arg,
-                method=resample_fn, always_resample=always)
+                lw_safe, p3, key_words, n_f, uniform_w, threshold,
+                method=resample_fn, always_resample=always, **day)
         pos = _positions(key_words, resample_fn, n, n_f)
-        return fused_weight_resample(lw_safe, p3, pos, uniform_w, thr_arg,
-                                     always_resample=always)
+        return fused_weight_resample(lw_safe, p3, pos, uniform_w, threshold,
+                                     always_resample=always,
+                                     num_alive=n_f if day else None, **day)
+
+    # K3 takes the day's whole weight step (mask, degenerate check,
+    # log-likelihood, ESS record, zeroed weights and, unless a move follows,
+    # the state estimate) where the fused step runs on float32 with fresh
+    # weights each day; carried weights combine with the last day's
+    # weights first and keep the steps around K3.
+    k3_day = fused_enabled and not carry_weights and dtype == torch.float32
+    k3_estimate = k3_day and algorithm != "RMPF"
 
     def log_weights(fn, who, particles, y_i, t_i):
         lw = torch.as_tensor(fn(y=y_i, particles=particles, t=t_i, **theta))
@@ -488,9 +505,9 @@ def particle_filter_core(
                         p3 = (particles if particles.ndim == 3
                               else particles[..., None])
                         aux_col = torch.clamp_min(aux_lw,
-                                                  _FUSED_FLOOR)[..., None]
+                                                  FUSED_FLOOR)[..., None]
                         p_ext = fused_step(
-                            torch.clamp_min(aux_base, _FUSED_FLOOR),
+                            torch.clamp_min(aux_base, FUSED_FLOOR),
                             torch.cat([p3, aux_col], dim=-1), k_aux,
                             zero_thr, True)[0]
                         aux_anc = p_ext[..., -1]
@@ -522,70 +539,80 @@ def particle_filter_core(
                 lw = log_weights(weight, "weight_fn", particles, y_i, t_i)
                 if algorithm == "APF":
                     lw = lw - aux_anc
-                lw = torch.where(alive, lw.to(dtype), -math.inf)
-
-                # --- degenerate-weight detection ---
-                lw_max = torch.amax(lw, dim=1)
-                if sharded:
-                    lw_max = pmax(lw_max, particle_axis)
-                dead = dead | (lw_max < DEGENERATE_LOG_WEIGHT)
-                if carry_weights:
-                    # After an APF step the aux resample consumed the
-                    # carried weights.
-                    combined = lw + (log_uniform_w if algorithm == "APF"
-                                     else lnw_prev)
-                else:
-                    combined = lw
-
-                if fused_enabled:
+                if k3_day:
                     p3 = (particles if particles.ndim == 3
                           else particles[..., None])
-                    thr_arg = thr if thr is not None else zero_thr
-                    p3, weights, ess, lse = fused_step(
-                        torch.clamp_min(combined, _FUSED_FLOOR), p3, k_res,
-                        thr_arg, always_resample)
-                    particles = p3 if particles.ndim == 3 else p3[..., 0]
-                    incr = lse if carry_weights else lse - log_n
-                    loglike = torch.where(dead, -math.inf, loglike + incr)
-                    if always_resample:
-                        ess_rec = n_f
-                    else:
-                        ess_rec = torch.where(ess < thr_arg, n_f, ess)
+                    p3, weights, _, _, loglike, ess_rec, state = fused_step(
+                        lw.expand(c, n), p3, k_res, thr_arg, always_resample,
+                        loglike=loglike, dead=dead, log_n=log_n,
+                        estimate=k3_estimate)
+                    if particles.ndim == 2:
+                        p3 = p3[..., 0]
+                        state = None if state is None else state[:, 0]
+                    particles = p3
                 else:
-                    weights, lse, mx = normalize_log_weights(
-                        combined, axis_name=particle_axis)
-                    incr = ((mx + lse) if carry_weights
-                            else (mx + lse - log_n))
-                    loglike = torch.where(dead, -math.inf, loglike + incr)
-                    ess = effective_sample_size(weights,
-                                                axis_name=particle_axis)
-                    if resample_algorithm == "SIS" and not always_resample:
-                        ess_rec = ess
+                    lw = torch.where(alive, lw.to(dtype), -math.inf)
+                    # --- degenerate-weight detection ---
+                    lw_max = torch.amax(lw, dim=1)
+                    if sharded:
+                        lw_max = pmax(lw_max, particle_axis)
+                    dead = dead | (lw_max < DEGENERATE_LOG_WEIGHT)
+                    if carry_weights:
+                        # After an APF step the aux resample consumed the
+                        # carried weights.
+                        combined = lw + (log_uniform_w if algorithm == "APF"
+                                         else lnw_prev)
                     else:
-                        if sharded:
-                            idx = sharded_resample_indices(
-                                k_res, weights, resample_fn, particle_axis,
-                                n_f)
-                            resampled = sharded_gather(particles, idx,
-                                                       particle_axis)
-                        else:
-                            idx = resample_indices(k_res, weights,
-                                                   method=resample_fn,
-                                                   num_alive=n_f,
-                                                   validate=False)
-                            resampled = gather_particles(particles, idx)
+                        combined = lw
+
+                    if fused_enabled:
+                        p3 = (particles if particles.ndim == 3
+                              else particles[..., None])
+                        p3, weights, ess, lse = fused_step(
+                            torch.clamp_min(combined, FUSED_FLOOR), p3, k_res,
+                            thr_arg, always_resample)
+                        particles = p3 if particles.ndim == 3 else p3[..., 0]
+                        incr = lse if carry_weights else lse - log_n
+                        loglike = torch.where(dead, -math.inf, loglike + incr)
                         if always_resample:
-                            particles, weights, ess_rec = (resampled,
-                                                           uniform_w, n_f)
+                            ess_rec = n_f
                         else:
-                            do = ess < thr
-                            do_p = do.reshape((c,)
-                                              + (1,) * (particles.ndim - 1))
-                            particles = torch.where(do_p, resampled,
-                                                    particles)
-                            weights = torch.where(do[:, None], uniform_w,
-                                                  weights)
-                            ess_rec = torch.where(do, n_f, ess)
+                            ess_rec = torch.where(ess < thr_arg, n_f, ess)
+                    else:
+                        weights, lse, mx = normalize_log_weights(
+                            combined, axis_name=particle_axis)
+                        incr = ((mx + lse) if carry_weights
+                                else (mx + lse - log_n))
+                        loglike = torch.where(dead, -math.inf, loglike + incr)
+                        ess = effective_sample_size(weights,
+                                                    axis_name=particle_axis)
+                        if resample_algorithm == "SIS" and not always_resample:
+                            ess_rec = ess
+                        else:
+                            if sharded:
+                                idx = sharded_resample_indices(
+                                    k_res, weights, resample_fn, particle_axis,
+                                    n_f)
+                                resampled = sharded_gather(particles, idx,
+                                                           particle_axis)
+                            else:
+                                idx = resample_indices(k_res, weights,
+                                                       method=resample_fn,
+                                                       num_alive=n_f,
+                                                       validate=False)
+                                resampled = gather_particles(particles, idx)
+                            if always_resample:
+                                particles, weights, ess_rec = (resampled,
+                                                               uniform_w, n_f)
+                            else:
+                                do = ess < thr
+                                do_p = do.reshape(
+                                    (c,) + (1,) * (particles.ndim - 1))
+                                particles = torch.where(do_p, resampled,
+                                                        particles)
+                                weights = torch.where(do[:, None], uniform_w,
+                                                      weights)
+                                ess_rec = torch.where(do, n_f, ess)
 
             if algorithm == "RMPF":
                 with span("transition"):
@@ -595,17 +622,19 @@ def particle_filter_core(
                         "move_fn")
 
             with span("estimate"):
-                # Dead chains: zero weights so the state estimate and ESS
-                # are 0.
-                weights = torch.where(dead[:, None], 0.0, weights)
-                ess_rec = torch.where(dead, 0.0, ess_rec)
+                if not k3_day:
+                    # Dead chains: zero weights so the state estimate and
+                    # ESS are 0.
+                    weights = torch.where(dead[:, None], 0.0, weights)
+                    ess_rec = torch.where(dead, 0.0, ess_rec)
                 if carry_weights:
                     pos_w = weights > 0
                     lnw_prev = torch.where(
                         pos_w, torch.log(torch.where(pos_w, weights, 1.0)),
                         -math.inf)
 
-                state = _weighted_sum(weights, particles)
+                if not k3_estimate:
+                    state = _weighted_sum(weights, particles)
                 states.append(psum(state, particle_axis) if sharded
                               else state)
                 esses.append(ess_rec)
@@ -613,6 +642,9 @@ def particle_filter_core(
                 if return_particles:
                     p_hist.append(particles)
                     w_hist.append(weights)
+                count("engine.days")
+                if k3_day:
+                    count("engine.k3_days")
 
     state0 = _weighted_sum(uniform_w, particles0)
     if sharded:

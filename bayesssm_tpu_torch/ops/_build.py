@@ -92,9 +92,9 @@ _ENTRIES = {
     **{name: [*_SWEEP_SHARED, *consts, _P]
        for name, consts in _SWEEP_CONSTS.items()},
     "bssm_select": [_P] * 4 + [_I] * 3 + [_P],
-    # lw parts pos uni thr seeds alive pout wout ess lse, C N D method
-    # always, stream
-    "bssm_fused_resample": [_P] * 11 + [_I] * 5 + [_P],
+    # lw parts pos uni thr words, word_stride, alive pout wout ess lse
+    # ll_in ll_out dead log_n ess_rec est, C N D method always, stream
+    "bssm_fused_resample": [_P] * 6 + [_L] + [_P] * 11 + [_I] * 5 + [_P],
     # seeds state lam gam out, C N, inv_nt t_end, unroll, stream
     "bssm_gillespie": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I, _P],
     # keys key_stride data data_stride data_word out, rows n form, lo span,
@@ -113,7 +113,7 @@ _DATA_FORMS = ("fold_in", "lane_uniform")
 _PI = ctypes.POINTER(ctypes.c_int)
 _INFO = {"bssm_sweep_sir_info": [_I, _PI, _PI],
          "bssm_gillespie_info": [_PI, _PI],
-         "bssm_fused_resample_info": [_I, _I, _PI, _PI]}
+         "bssm_fused_resample_info": [_I, _I, _I, _PI, _PI]}
 
 # Launches of every generated functor count under one key.
 GENERATED = "bssm_sweep_generated"
@@ -230,7 +230,9 @@ def occupancy() -> dict:
     (``bssm_gillespie``) and of K1 with the SIR functor
     (``bssm_sweep_sir``) at 128 and 1024 lanes, and registers and resident
     warps (chains) per SM of K3 (``bssm_fused_resample``) at 128 and 1024
-    lanes of 2 columns and 1024 lanes of 3, from the CUDA runtime."""
+    lanes of 2 columns and 1024 lanes of 3, and of its engine day
+    (``bssm_fused_resample_day``) at the engine cells' 128 lanes of 2
+    columns and 1024 of 1, from the CUDA runtime."""
     lib = load_library()
     regs, blocks = ctypes.c_int(), ctypes.c_int()
     refs = (ctypes.byref(regs), ctypes.byref(blocks))
@@ -241,11 +243,13 @@ def occupancy() -> dict:
         _raise_on(lib.bssm_sweep_sir_info(n, *refs), "bssm_sweep_sir_info")
         out[f"bssm_sweep_sir@{n}"] = dict(registers=regs.value,
                                           blocks_per_sm=blocks.value)
-    for n, d in ((128, 2), (1024, 2), (1024, 3)):
-        _raise_on(lib.bssm_fused_resample_info(n, d, *refs),
+    for day, n, d in ((0, 128, 2), (0, 1024, 2), (0, 1024, 3), (1, 128, 2),
+                      (1, 1024, 1)):
+        _raise_on(lib.bssm_fused_resample_info(n, d, day, *refs),
                   "bssm_fused_resample_info")
-        out[f"bssm_fused_resample@{n}x{d}"] = dict(
-            registers=regs.value, warps_per_sm=blocks.value)
+        name = "bssm_fused_resample_day" if day else "bssm_fused_resample"
+        out[f"{name}@{n}x{d}"] = dict(registers=regs.value,
+                                      warps_per_sm=blocks.value)
     return out
 
 
@@ -429,13 +433,20 @@ def launch_select(cdf_ext, pos, cols):
 
 
 def launch_fused_resample(lw, parts, uni, thr, *, always, pos=None,
-                          words=None, alive=None, method=-1):
+                          words=None, alive=None, method=-1, loglike=None,
+                          dead=None, log_n=None, estimate=False):
     """Launch ``bssm_fused_resample`` (K3) for ``C`` chains of ``N``
     lanes: ``lw``, ``uni`` (and ``pos``) ``[C, N]``, ``parts [C, N, D]``,
-    ``thr`` (and ``alive``) ``[C]``, ``words [C, 2]``. ``method`` -1 takes
-    ``pos``; 0/1/2 draw stratified/systematic/multinomial positions.
+    ``thr`` (and ``alive``) ``[C]``, ``words [C, 2]`` int64 key words (any
+    row stride). ``method`` -1 takes ``pos``; 0/1/2 draw stratified/
+    systematic/multinomial positions.
 
     Returns ``(parts_out [C, N, D], w_out [C, N], ess [C], lse [C])``.
+    Given the running ``loglike [C]``, ``dead [C]`` (bool, updated in
+    place) and ``log_n [C]`` with ``alive``, the launch is the engine's
+    whole day on the raw log-weights ``lw`` (``csrc/resample.cu``), and
+    ``(loglike_out [C], ess_rec [C], est)`` follow, ``est [C, D]`` the
+    state estimate when ``estimate`` (else None).
     """
     dev = lw.device
     if dev.type != "cuda":
@@ -451,22 +462,42 @@ def launch_fused_resample(lw, parts, uni, thr, *, always, pos=None,
                "uniform_w": (uni, f32), "threshold": (thr, f32)}
     if uni.shape != (c, n) or thr.shape != (c,):
         raise ValueError("uniform_w must be [C, N] and threshold [C]")
-    seeds = None
     if method == -1:
         tensors["positions"] = (pos, f32)
         if pos.shape != (c, n):
             raise ValueError("positions must be [C, N]")
+        words = None
     else:
-        seeds = _seeds_i32(words)
-        tensors.update(seed_words=(seeds, torch.int32),
-                       num_alive=(alive, f32))
-        if seeds.shape != (c, 2) or alive.shape != (c,):
-            raise ValueError("seed words must be [C, 2] and num_alive [C]")
+        if (words is None or words.dtype != torch.int64
+                or words.device != dev or words.shape != (c, 2)):
+            raise ValueError("key words must be int64 [C, 2] on the "
+                             "launch's device")
+        if words.stride(1) != 1:
+            words = words.contiguous()
+    day = loglike is not None
+    if day and alive is None:
+        raise ValueError("the engine day needs num_alive [C]")
+    if alive is not None or day:
+        tensors["num_alive"] = (alive, f32)
+        if alive.shape != (c,):
+            raise ValueError("num_alive must be [C]")
+    if day:
+        tensors.update(loglike=(loglike, f32), dead=(dead, torch.bool),
+                       log_n=(log_n, f32))
+        if loglike.shape != (c,) or dead.shape != (c,) or log_n.shape != (
+                c,):
+            raise ValueError("loglike, dead and log_n must be [C]")
     _check(tensors, dev)
     pout = torch.empty_like(parts)
     wout = torch.empty_like(lw)
     ess = torch.empty(c, dtype=f32, device=dev)
     lse = torch.empty(c, dtype=f32, device=dev)
+    ll_out = ess_rec = est = None
+    if day:
+        ll_out = torch.empty(c, dtype=f32, device=dev)
+        ess_rec = torch.empty(c, dtype=f32, device=dev)
+        if estimate:
+            est = torch.empty((c, d), dtype=f32, device=dev)
     lib = load_library()
 
     def ptr(t):
@@ -474,11 +505,15 @@ def launch_fused_resample(lw, parts, uni, thr, *, always, pos=None,
 
     rc = lib.bssm_fused_resample(
         lw.data_ptr(), parts.data_ptr(), ptr(pos), uni.data_ptr(),
-        thr.data_ptr(), ptr(seeds), ptr(alive), pout.data_ptr(),
-        wout.data_ptr(), ess.data_ptr(), lse.data_ptr(), c, n, d,
-        int(method), int(bool(always)), _stream(dev))
+        thr.data_ptr(), ptr(words), 0 if words is None else words.stride(0),
+        ptr(alive), pout.data_ptr(), wout.data_ptr(), ess.data_ptr(),
+        lse.data_ptr(), ptr(loglike), ptr(ll_out), ptr(dead), ptr(log_n),
+        ptr(ess_rec), ptr(est), c, n, d, int(method), int(bool(always)),
+        _stream(dev))
     _raise_on(rc, "bssm_fused_resample")
     launches["bssm_fused_resample"] += 1
+    if day:
+        return pout, wout, ess, lse, ll_out, ess_rec, est
     return pout, wout, ess, lse
 
 

@@ -32,9 +32,24 @@ CDF its doubling scan (``running_cdf``), and the search is
 chain, its lanes in registers) and :func:`fused_weight_resample_reference`
 agree bit for bit on the card. The public functions route by device: CPU
 tensors take the plain version, CUDA tensors launch the kernel or raise.
+
+**The engine's day.** Given the running ``loglike [C]``, ``dead [C]``
+(bool) and ``log_n [C]`` with ``num_alive``, one call is the filter
+engine's whole weight step on the day's raw log-weights: lanes at or above
+a chain's count masked to ``-inf`` and clamped at ``-1e30``, ``dead``
+updated in place (``max < DEGENERATE_LOG_WEIGHT``), the log-likelihood
+``where(dead, -inf, loglike + (lse - log_n))``, the ESS record (the count
+after a resample, else the ESS; 0 once dead), a dead chain's weights
+zeroed and, with ``estimate``, the state estimate ``sum_n w[n] x[n, :]`` of
+the output weights and particles in the halving tree. The call then
+returns ``(particles, weights, ess, logsumexp, loglike, ess_record,
+estimate)`` (``estimate`` None without it); without ``loglike`` it is the
+step above, unchanged.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -42,8 +57,10 @@ from bayesssm_tpu_torch.ops import _build
 from bayesssm_tpu_torch.ops.merge_select import select_index
 from bayesssm_tpu_torch.ops.rng import position_uniforms
 from bayesssm_tpu_torch.ops.sweep_builder import running_cdf, tree_sum
+from bayesssm_tpu_torch.ops.weights import DEGENERATE_LOG_WEIGHT
 
 __all__ = [
+    "FUSED_FLOOR",
     "MAX_FUSED_LANES",
     "POSITION_METHODS",
     "fused_weight_resample",
@@ -56,6 +73,9 @@ __all__ = [
 MAX_FUSED_LANES = 1024
 POSITION_METHODS = ("stratified", "systematic", "multinomial")
 _SENTINEL = 1.5
+# Clamp of -inf log-weights entering the fused weight step (the engine's
+# day clamps its masked log-weights in the kernel).
+FUSED_FLOOR = -1e30
 
 
 def _as(x, like: torch.Tensor, shape) -> torch.Tensor:
@@ -97,18 +117,47 @@ def inkernel_positions(key_words: torch.Tensor, method: str, n: int,
     return torch.where(lane_f < alive, pos, 1.0)
 
 
+def _day_log_weights(lw, num_alive):
+    """The day's raw log-weights masked at each chain's count and clamped,
+    as the kernel loads them."""
+    lane_f = torch.arange(lw.shape[1], dtype=torch.float32, device=lw.device)
+    masked = torch.where(lane_f < num_alive[:, None], lw, -math.inf)
+    return torch.clamp_min(masked, FUSED_FLOOR)
+
+
+def _estimate(weights, parts):
+    """``sum_n w[c, n] * p[c, n, j]`` in the kernel's halving tree over
+    its ``max(32, 2^k)`` lanes (the padding adds zeros): ``[C, D]``."""
+    prod = (weights[..., None] * parts).transpose(1, 2)
+    n = prod.shape[-1]
+    if n < 32:
+        prod = torch.cat([prod, prod.new_zeros(prod.shape[:-1] + (32 - n,))],
+                         dim=-1)
+    return tree_sum(prod)[..., 0]
+
+
 def fused_weight_resample_reference(lw, particles, uniform_w, threshold, *,
                                     positions=None, key_words=None,
                                     num_alive=None, method=None,
-                                    always_resample=False):
+                                    always_resample=False, loglike=None,
+                                    dead=None, log_n=None, estimate=False):
     """The plain PyTorch weight step on any device (the kernel's twin).
 
     Give ``positions [C, N]``, or ``key_words [C, 2]``, ``num_alive [C]``
     and a position ``method``. Returns ``(particles_out [C, N, d],
-    weights_out [C, N], ess [C], logsumexp [C])``.
+    weights_out [C, N], ess [C], logsumexp [C])``; with ``loglike``,
+    ``dead``, ``log_n`` and ``num_alive``, the engine's day (module
+    docstring) and its three outputs more.
     """
     lw, parts, uni, thr = _prepare(lw, particles, uniform_w, threshold)
-    n = lw.shape[1]
+    c, n = lw.shape
+    day = loglike is not None
+    if day and num_alive is None:
+        raise ValueError("the engine day needs num_alive [C]")
+    if num_alive is not None:
+        num_alive = _as(num_alive, lw, (c,))
+    if day:
+        lw = _day_log_weights(lw, num_alive)
     mx = torch.amax(lw, dim=1, keepdim=True)
     shifted = torch.exp(lw - mx)
     s = tree_sum(shifted)
@@ -124,48 +173,76 @@ def fused_weight_resample_reference(lw, particles, uniform_w, threshold, *,
     else:
         pos = inkernel_positions(
             torch.as_tensor(key_words, dtype=torch.int64, device=lw.device),
-            method, n, _as(num_alive, lw, (lw.shape[0],)))
+            method, n, num_alive)
     m = select_index(cdf, pos)
     res = torch.gather(parts, 1, m[..., None].expand_as(parts))
     if always_resample:
-        return res, uni, ess, lse
-    do = (ess < thr)[:, None]
-    return (torch.where(do[..., None], res, parts),
-            torch.where(do, uni, w), ess, lse)
+        do = torch.ones((c, 1), dtype=torch.bool, device=lw.device)
+        p_out, w_out = res, uni
+    else:
+        do = (ess < thr)[:, None]
+        p_out = torch.where(do[..., None], res, parts)
+        w_out = torch.where(do, uni, w)
+    if not day:
+        return p_out, w_out, ess, lse
+    dead |= mx[:, 0] < DEGENERATE_LOG_WEIGHT
+    ll = torch.where(dead, -math.inf, loglike + (lse - log_n))
+    ess_rec = torch.where(dead, 0.0, torch.where(do[:, 0], num_alive, ess))
+    w_out = torch.where(dead[:, None], 0.0, w_out)
+    est = _estimate(w_out, p_out) if estimate else None
+    return p_out, w_out, ess, lse, ll, ess_rec, est
+
+
+def _day(loglike, dead, log_n, estimate):
+    """The day's arguments of the launcher (none outside a day)."""
+    if loglike is None:
+        return {}
+    return dict(loglike=loglike, dead=dead, log_n=log_n, estimate=estimate)
 
 
 def fused_weight_resample(lw, particles, positions, uniform_w, threshold,
-                          always_resample: bool = False):
+                          always_resample: bool = False, *, num_alive=None,
+                          loglike=None, dead=None, log_n=None,
+                          estimate=False):
     """Fused weight step with given positions ``[C, N]`` (module
     docstring). ``lw``/``uniform_w`` ``[C, N]``, ``particles [C, N, d]``,
-    ``threshold`` scalar or ``[C]``."""
+    ``threshold`` scalar or ``[C]``; the engine's day with ``loglike``,
+    ``dead``, ``log_n`` and ``num_alive``."""
     if torch.as_tensor(lw).device.type == "cpu":
         return fused_weight_resample_reference(
             lw, particles, uniform_w, threshold, positions=positions,
-            always_resample=always_resample)
+            num_alive=num_alive, always_resample=always_resample,
+            loglike=loglike, dead=dead, log_n=log_n, estimate=estimate)
     lw, parts, uni, thr = _prepare(lw, particles, uniform_w, threshold)
     return _build.launch_fused_resample(
         lw, parts, uni, thr, always=always_resample,
-        pos=_as(positions, lw, lw.shape))
+        pos=_as(positions, lw, lw.shape),
+        alive=(None if loglike is None or num_alive is None
+               else _as(num_alive, lw, (lw.shape[0],))),
+        **_day(loglike, dead, log_n, estimate))
 
 
 def fused_weight_resample_seeded(lw, particles, key_words, num_alive,
                                  uniform_w, threshold,
                                  method: str = "stratified",
-                                 always_resample: bool = False):
+                                 always_resample: bool = False, *,
+                                 loglike=None, dead=None, log_n=None,
+                                 estimate=False):
     """Fused weight step that draws its positions from each chain's key
-    words ``[C, 2]`` (module docstring); ``num_alive`` scalar or ``[C]``."""
+    words ``[C, 2]`` (module docstring); ``num_alive`` scalar or ``[C]``;
+    the engine's day with ``loglike``, ``dead`` and ``log_n``."""
     if method not in POSITION_METHODS:
         raise ValueError(f"unknown resampling method {method!r}")
     if torch.as_tensor(lw).device.type == "cpu":
         return fused_weight_resample_reference(
             lw, particles, uniform_w, threshold, key_words=key_words,
             num_alive=num_alive, method=method,
-            always_resample=always_resample)
+            always_resample=always_resample, loglike=loglike, dead=dead,
+            log_n=log_n, estimate=estimate)
     lw, parts, uni, thr = _prepare(lw, particles, uniform_w, threshold)
+    words = torch.as_tensor(key_words, dtype=torch.int64, device=lw.device)
     return _build.launch_fused_resample(
-        lw, parts, uni, thr, always=always_resample,
-        words=torch.as_tensor(key_words, dtype=torch.int64,
-                              device=lw.device),
+        lw, parts, uni, thr, always=always_resample, words=words,
         alive=_as(num_alive, lw, (lw.shape[0],)),
-        method=POSITION_METHODS.index(method))
+        method=POSITION_METHODS.index(method),
+        **_day(loglike, dead, log_n, estimate))

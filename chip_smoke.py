@@ -32,6 +32,12 @@ Phases:
    (d = 2) and 512 x 1024 (d = 1): host and in-kernel positions,
    stratified/systematic/multinomial, adaptive and always, masked lanes;
    columns, weights, ESS and log-sum-exp bitwise; kernel and plain ms;
+   then K3's engine day at the engine cells' shapes (4096 x 128 x 2, every
+   lane alive; 4096 x 1024 x 1, 1000 alive), adaptive and forced, host
+   and in-kernel positions: its seven outputs and the dead flags bitwise,
+   a dead-on-entry chain and one below -1e8 ending dead; ms a day by
+   CUDA-graph replay beside its bound (the ``kernels`` line's K3 row,
+   ``day``; its ``launches`` count step and day alike);
 8. the Gillespie day-step (K4) against its plain version at 4096 x 128,
    rates spread as in phase 5 and some chains with I = 0: S and I bitwise;
    kernel and plain ms; then on the states the engine path hands it (the
@@ -795,16 +801,131 @@ def phase_fused_resample(dev):
         plain_ms_host_issued=cuda_ms(timed[1], 5), bound_ms=bound_ms,
         bound_by=bound_by, share_of_bound=bound_ms / kernel_ms)
     return dict(max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                day=fused_resample_days(dev))
+
+
+def fused_resample_days(dev):
+    """K3's engine day (the raw log-weights and the running log-likelihood,
+    dead flags and log n in; log-likelihood, ESS record and state estimate
+    out besides the step's four) against its plain version at the engine
+    cells' shapes: 4096 x 128 x 2 with every lane alive and 4096 x 1024 x 1
+    with 1000 alive. Chain 2's every log-weight is below -1e8 and chain 5
+    is dead on entry; the key words are a strided view of [C, 3, 5, 2] day
+    keys. Adaptive and forced, host and in-kernel positions: the seven
+    outputs and the dead flags updated in place equal bit for bit, and one
+    launch a call. Then ms a day by CUDA-graph replay (in-kernel stratified,
+    adaptive, as the engine runs it), plain ms and the bound."""
+    from bayesssm_tpu_torch.ops import _build
+    from bayesssm_tpu_torch.ops.resampling import _positions
+    from bayesssm_tpu_torch.ops.resampling_fused import (
+        fused_weight_resample,
+        fused_weight_resample_reference,
+        fused_weight_resample_seeded,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows = {}
+    for n, d, alive_n in ((PARTICLES, 2, PARTICLES), (1024, 1, 1000)):
+        c = CHAINS
+        lane = torch.arange(n, dtype=torch.float32, device=dev)
+        alive = torch.full((c,), float(alive_n), device=dev)
+        uni = torch.where(lane[None, :] < alive[:, None], 1.0 / alive[:, None],
+                          0.0)
+        scale = 0.1 + 3.0 * torch.rand((c, 1), device=dev, generator=gen)
+        lw = scale * torch.randn((c, n), device=dev, generator=gen)
+        lw[2] = -1e9 + lw[2]
+        parts = torch.randn((c, n, d), device=dev, generator=gen)
+        ll = 10.0 * torch.randn(c, device=dev, generator=gen)
+        dead = torch.zeros(c, dtype=torch.bool, device=dev)
+        dead[5] = True
+        log_n = torch.log(alive)
+        keys = torch.as_tensor(np.random.default_rng(n).integers(
+            0, 2**32, size=(c, 3, 5, 2), dtype=np.uint64).astype(np.int64),
+            device=dev)
+        words = keys[:, 1, 2]
+        pos = _positions(words, "stratified", n, alive)
+        day = dict(loglike=ll, log_n=log_n, estimate=True)
+        before = _build.launches["bssm_fused_resample"]
+        calls = 0
+        for always in (False, True):
+            thr = torch.zeros(c, device=dev) if always else alive / 2.0
+            routes = {
+                "inkernel": (
+                    lambda dd: fused_weight_resample_seeded(
+                        lw, parts, words, alive, uni, thr, "stratified",
+                        always, dead=dd, **day),
+                    lambda dd: fused_weight_resample_reference(
+                        lw, parts, uni, thr, key_words=words,
+                        num_alive=alive, method="stratified",
+                        always_resample=always, dead=dd, **day)),
+                "host": (
+                    lambda dd: fused_weight_resample(
+                        lw, parts, pos, uni, thr, always, num_alive=alive,
+                        dead=dd, **day),
+                    lambda dd: fused_weight_resample_reference(
+                        lw, parts, uni, thr, positions=pos, num_alive=alive,
+                        always_resample=always, dead=dd, **day)),
+            }
+            for route, (kern, plain) in routes.items():
+                d_k, d_p = dead.clone(), dead.clone()
+                got, want = (*kern(d_k), d_k), (*plain(d_p), d_p)
+                calls += 1
+                torch.cuda.synchronize()
+                if (len(got) != 8 or not all(
+                        torch.equal(a, b) for a, b in zip(got, want))):
+                    raise AssertionError(
+                        f"K3's day differs: {c}x{n}x{d} {route} "
+                        f"always={always}")
+                ll_out, rec, est, d_out = got[4], got[5], got[6], got[7]
+                if not (d_out[2] and d_out[5] and int(d_out.sum()) == 2
+                        and ll_out[2] == float("-inf") and rec[2] == 0
+                        and not got[1][2].any() and not est[2].any()
+                        and ll_out[5] == float("-inf")
+                        and torch.isfinite(ll_out[d_out == 0]).all()):
+                    raise AssertionError(
+                        f"K3's day: dead chains off at {c}x{n}x{d}")
+        if _build.launches["bssm_fused_resample"] != before + calls:
+            raise AssertionError("K3's day launch count is off")
+        thr = alive / 2.0
+        d_t = dead.clone()
+        kernel_ms = graph_ms(lambda: fused_weight_resample_seeded(
+            lw, parts, words, alive, uni, thr, "stratified", False, dead=d_t,
+            **day), 20)
+        plain_ms = graph_ms(lambda: fused_weight_resample_reference(
+            lw, parts, uni, thr, key_words=words, num_alive=alive,
+            method="stratified", dead=d_t, **day), 5)
+        bound_ms, bound_by = fused_resample_day_bound(c, n, d,
+                                                      float(alive.sum()))
+        shape = f"{c}x{n}x{d}"
+        rows[shape] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by,
+                           share_of_bound=bound_ms / kernel_ms)
+        say("fused_resample_day", shape=shape, alive=alive_n,
+            launches=calls, bitwise_equal=True, **rows[shape])
+    return rows
 
 
 def fused_resample_bound(c: int, n: int, d: int, live=None):
     """K3: reads log-weights, particles, uniform weights, thresholds, seed
     words and counts; writes particles, weights, ESS and log-sum-exp; one
     weight-and-selection stage a live lane (``live`` of them, else all)."""
-    bytes_moved = 4 * (c * n * (2 + d) + 4 * c) + 4 * (c * n * (1 + d) + 2 * c)
-    return bound(bytes_moved, (c * n if live is None else live,
-                               stage_instr(n)))
+    return bound(fused_resample_bytes(c, n, d),
+                 (c * n if live is None else live, stage_instr(n)))
+
+
+def fused_resample_bytes(c: int, n: int, d: int) -> int:
+    return 4 * (c * n * (2 + d) + 4 * c) + 4 * (c * n * (1 + d) + 2 * c)
+
+
+def fused_resample_day_bound(c: int, n: int, d: int, live: float):
+    """K3's engine day: the step's bytes, and per chain the log-likelihood,
+    dead flag and log n in, the dead flag, log-likelihood, ESS record and
+    ``d`` estimate columns out; the step's instructions (the estimate's few
+    a lane are left out, which lowers the bound)."""
+    bytes_moved = (fused_resample_bytes(c, n, d)
+                   + c * (4 + 1 + 4) + c * (1 + 4 + 4 + 4 * d))
+    return bound(bytes_moved, (live, stage_instr(n)))
 
 
 def k3_check(dev, what, n, alive, aux):

@@ -18,8 +18,7 @@ map to warps:
   scan's in-warp levels take the previous warp's raw values as their
   carry;
 * ``library``: ``fused_weight_resample_seeded`` as the engine calls it:
-  the launcher's fixed table (``resample.cu::launch_fused``), and the
-  wrapper's conversion of the key words to int32.
+  the launcher's fixed table (``resample.cu::launch_fused``).
 
 K2's standalone entry (``bssm_select``, its value rows read in place)
 takes 1, 2, 4 or 8 rows a block (``k2_forms`` lines), at phase 3's timed
@@ -56,23 +55,29 @@ SOURCE = r"""
 extern "C" {
 
 int k3_warp(const float* lw, const float* parts, const float* pos,
-            const float* uni, const float* thr, const int* seeds,
-            const float* alive, float* pout, float* wout, float* ess,
-            float* lse, int C, int N, int D, int method, int always, int wpb,
-            int stage, void* stream) {
-  const bssm::FusedArgs a{lw,  parts, pos, uni, thr, seeds,  alive, pout,
-                          wout, ess, lse, C,   N,   D,     method, always};
+            const float* uni, const float* thr, const long long* words,
+            long long word_stride, const float* alive, float* pout,
+            float* wout, float* ess, float* lse, int C, int N, int D,
+            int method, int always, int wpb, int stage, void* stream) {
+  bssm::FusedArgs a{};
+  a.lw = lw, a.parts = parts, a.pos = pos, a.uni = uni, a.thr = thr;
+  a.words = words, a.word_stride = word_stride, a.alive = alive;
+  a.pout = pout, a.wout = wout, a.ess = ess, a.lse = lse;
+  a.C = C, a.N = N, a.D = D, a.method = method, a.always = always;
   return (int)bssm::launch_fused_warp(a, wpb, stage != 0,
                                       (cudaStream_t)stream);
 }
 
 int k3_team(const float* lw, const float* parts, const float* pos,
-            const float* uni, const float* thr, const int* seeds,
-            const float* alive, float* pout, float* wout, float* ess,
-            float* lse, int C, int N, int D, int method, int always, int wpb,
-            int stage, void* stream) {
-  const bssm::FusedArgs a{lw,  parts, pos, uni, thr, seeds,  alive, pout,
-                          wout, ess, lse, C,   N,   D,     method, always};
+            const float* uni, const float* thr, const long long* words,
+            long long word_stride, const float* alive, float* pout,
+            float* wout, float* ess, float* lse, int C, int N, int D,
+            int method, int always, int wpb, int stage, void* stream) {
+  bssm::FusedArgs a{};
+  a.lw = lw, a.parts = parts, a.pos = pos, a.uni = uni, a.thr = thr;
+  a.words = words, a.word_stride = word_stride, a.alive = alive;
+  a.pout = pout, a.wout = wout, a.ess = ess, a.lse = lse;
+  a.C = C, a.N = N, a.D = D, a.method = method, a.always = always;
   return (int)bssm::launch_fused_team(a, (cudaStream_t)stream);
 }
 
@@ -97,7 +102,7 @@ def build():
     p, i = ctypes.c_void_p, ctypes.c_int
     for name in ("k3_warp", "k3_team"):
         fn = getattr(lib, name)
-        fn.argtypes = [p] * 11 + [i] * 7 + [p]
+        fn.argtypes = [p] * 6 + [ctypes.c_longlong] + [p] * 5 + [i] * 7 + [p]
         fn.restype = i
     lib.k2_select.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.k2_select.restype = i
@@ -212,7 +217,6 @@ def main() -> int:
              ("day", 1024, 2, False), ("aux", 1024, 3, True))
     for what, n, d, aux in cases:
         lw, parts, uni, thr, words, alive = inputs(dev, n, d, aux)
-        seeds = _build._seeds_i32(words)
         want = fused_weight_resample_reference(
             lw, parts, uni, thr, key_words=words, num_alive=alive,
             method="stratified", always_resample=aux)
@@ -222,8 +226,9 @@ def main() -> int:
         def entry(fn, wpb=1, stage=1):
             def call():
                 rc = fn(lw.data_ptr(), parts.data_ptr(), None,
-                        uni.data_ptr(), thr.data_ptr(), seeds.data_ptr(),
-                        alive.data_ptr(), *(o.data_ptr() for o in outs),
+                        uni.data_ptr(), thr.data_ptr(), words.data_ptr(),
+                        words.stride(0), alive.data_ptr(),
+                        *(o.data_ptr() for o in outs),
                         lw.shape[0], n, d, 0, int(aux), wpb, stage,
                         torch.cuda.current_stream(dev).cuda_stream)
                 if rc != 0:

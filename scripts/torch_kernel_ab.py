@@ -8,7 +8,10 @@ runs its own ``chip_smoke.py`` phase that holds and times K2 alone
 (``bssm_select``, phase 3), times K1 with the SIR functor by CUDA-graph
 replay (BPF, APF, RMPF and gapped at phase 5's shape, and APF at phase
 16's 1024-lane bound), then runs its phases that hold and time K3 (phase
-7, and with the aux column, phase 13), K4 (phase 8), the 1024-lane bound
+7, and with the aux column, phase 13), times the engine's weight step of
+one day on the engine's own day inputs (``engine_day_*`` lines: K3's one
+launch where it takes the day's arguments, else the ops around K3), K4
+(phase 8), the 1024-lane bound
 (phase 16: K1 APF, K3 and K3 with the aux column, K4) and K1c (phase 17),
 and last the MH samples/s of the engine path (phases 10 and 14, and 19's
 sinusoidal model) beside the sweep path's (14, 19). Every timing first
@@ -93,6 +96,76 @@ for what, algorithm, gaps in (("k1_sir_apf", "APF", None),
 k1_sir("k1_sir_apf_1024", "APF", n=1024, counts=cs.spread_counts(dev))
 cs.phase_fused_resample(dev)
 cs.phase_fused_resample_aux(dev)
+
+
+# The engine's weight step of one day on the engine's own day inputs (a
+# day's particles and raw log-weights from the model's callbacks, 4096
+# chains): where K3 takes the day's arguments, its one launch; else the
+# ops around K3 (mask, degenerate check, clamp, the key words' int32 form,
+# log-likelihood, ESS record, zeroed weights, estimate).
+def engine_day():
+    import inspect
+    import math
+    from bayesssm_tpu_torch.models.sinusoidal import sinusoidal_model
+    from bayesssm_tpu_torch.models.sir import sir_model
+    from bayesssm_tpu_torch.ops import resampling_fused as rf
+    from bayesssm_tpu_torch.ops import threefry
+
+    whole = "loglike" in inspect.signature(
+        rf.fused_weight_resample_seeded).parameters
+    c = cs.CHAINS
+    k0, k1, k2 = threefry.split(cs.words_for(c, 23, dev), (3,)).unbind(1)
+    for what, n, alive_n, (init, trans, weight), th, y in (
+            ("engine_day_sinusoidal", 1024, 1000, sinusoidal_model()[0],
+             dict(phi=0.8, sigma_x=1.0, sigma_y=0.5), 0.3),
+            ("engine_day_sir", 128, 128,
+             sir_model(500, 70, transition="gillespie_pallas")[0],
+             dict(lam=0.5, gamma=0.2), 12.0)):
+        th = {k: torch.full((c,), v, device=dev) for k, v in th.items()}
+        names = inspect.signature(init).parameters
+        p0 = init(key=k0, num_particles=n,
+                  **{k: v for k, v in th.items() if k in names})
+        names = inspect.signature(trans).parameters
+        parts = trans(key=k1, particles=p0,
+                      **{k: v for k, v in th.items() if k in names},
+                      **({"t": 1} if "t" in names else {}))
+        names = inspect.signature(weight).parameters
+        lw = weight(y=torch.tensor(y, device=dev), particles=parts,
+                    **{k: v for k, v in th.items() if k in names},
+                    **({"t": 1} if "t" in names else {}))
+        p3 = parts if parts.ndim == 3 else parts[..., None]
+        n_f = torch.full((c,), float(alive_n), device=dev)
+        lane = torch.arange(n, dtype=torch.float32, device=dev)
+        alive = lane < n_f[:, None]
+        log_n, thr = torch.log(n_f), n_f / 2.0
+        uni = torch.where(alive, 1.0 / n_f[:, None], 0.0)
+        ll = torch.zeros(c, device=dev)
+        dead = torch.zeros(c, dtype=torch.bool, device=dev)
+
+        def k3_day():
+            return rf.fused_weight_resample_seeded(
+                lw, p3, k2, n_f, uni, thr, "stratified", False, loglike=ll,
+                dead=dead, log_n=log_n, estimate=True)
+
+        def ops_around_k3():
+            m = torch.where(alive, lw, -math.inf)
+            dd = dead | (torch.amax(m, dim=1) < -1e8)
+            out, w, ess, lse = rf.fused_weight_resample_seeded(
+                torch.clamp_min(m, -1e30), p3, k2, n_f, uni, thr,
+                "stratified", False)
+            ll2 = torch.where(dd, -math.inf, ll + (lse - log_n))
+            rec = torch.where(dd, 0.0, torch.where(ess < thr, n_f, ess))
+            w = torch.where(dd[:, None], 0.0, w)
+            if parts.ndim == 2:
+                return ll2, rec, (w * out[..., 0]).sum(dim=1)
+            return ll2, rec, torch.einsum("cn,cnd->cd", w, out)
+
+        ms = cs.graph_ms(k3_day if whole else ops_around_k3, 20)
+        cs.say(what, shape=f"{c}x{n}x{p3.shape[2]}", alive=alive_n,
+               route="k3_day" if whole else "ops_around_k3", day_ms=ms)
+
+
+engine_day()
 cs.phase_gillespie(dev)
 cs.phase_lane_bound(dev)
 cs.phase_sinusoidal_kernel(dev)

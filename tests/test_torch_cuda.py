@@ -609,16 +609,24 @@ def test_sinusoidal_engine_takes_k3_every_day(dev):
         sinusoidal_model,
     )
 
+    from bayesssm_tpu_torch.utils import timing
+
     _, y = simulate_sinusoidal(1405, 8)
     fns, _, _ = sinusoidal_model()
     words = _words(32, 24, dev)
     theta = dict(phi=0.8, sigma_x=1.0, sigma_y=0.5)
     _build.reset_launches()
+    before = timing.counters()
     res = bootstrap_filter(words, y, 128, *fns, theta=theta,
                            return_particles=False)
+    after = timing.counters()
     assert _build.launches["bssm_fused_resample"] == 8
     assert _build.launches["bssm_threefry"] == 2 + 1 + 8
     assert sum(_build.launches.values()) == 8 + 11
+    # Every day's weight step, log-likelihood, ESS record and estimate ran
+    # inside K3's one launch.
+    for name in ("engine.days", "engine.k3_days"):
+        assert after.get(name, 0) - before.get(name, 0) == 8
     cpu = bootstrap_filter(words.cpu(), y, 128, *fns, theta=theta,
                            use_fused="interpret-inkernel",
                            return_particles=False)
@@ -822,6 +830,134 @@ def test_fused_resample_warp_form_bitwise(dev, n, d):
             for a, b in zip((*got, *got_h), (*want, *want_h)):
                 assert _same(a, b), (c, method, always)
     assert _build.launches["bssm_fused_resample"] == before + calls
+
+
+@pytest.mark.parametrize("always", [False, True])
+@pytest.mark.parametrize("n, d, alive_n", [(128, 2, 128), (1024, 1, 1000)])
+def test_fused_resample_engine_day_bitwise(dev, n, d, alive_n, always):
+    """K3's engine day, the warp form (128 lanes, 2 columns) and the team
+    form (1024 lanes, 1000 alive, 1 column), against its plain version on
+    the same inputs: raw log-weights whose masked lanes hold 50, +inf and
+    NaN; a chain whose every weight is below -1e8 (-inf log-likelihood,
+    zero weights, ESS record and estimate); a chain dead on entry; a NaN
+    lane; key words as a strided view of [C, T, 5, 2] day keys; and a batch
+    with every chain alive. In-kernel and host positions."""
+    from _k3_parent_day import day_case
+
+    from bayesssm_tpu_torch.ops.resampling import _positions
+    from bayesssm_tpu_torch.ops.resampling_fused import (
+        fused_weight_resample,
+        fused_weight_resample_reference,
+        fused_weight_resample_seeded,
+    )
+
+    calls = 0
+    before = _build.launches["bssm_fused_resample"]
+    for c, full in ((4097, False), (257, True)):
+        lw, parts, uni, alive, words, ll, dead = day_case(
+            c, n, d, alive_n, 5 * n + d + c, dev)
+        if full:                           # every chain alive
+            lw = torch.randn((c, n), device=dev) * 2.0
+            alive = torch.full((c,), float(n), device=dev)
+            uni = torch.full((c, n), 1.0 / n, device=dev)
+            dead = torch.zeros(c, dtype=torch.bool, device=dev)
+            ll = torch.randn(c, device=dev) * 10.0
+        thr = torch.zeros(c, device=dev) if always else alive / 2.0
+        log_n = torch.log(alive)
+        pos = _positions(words, "stratified", n, alive)
+        runs = []
+        for kernel in (True, False):
+            d_k, d_h = dead.clone(), dead.clone()
+            day = dict(loglike=ll, log_n=log_n, estimate=True)
+            if kernel:
+                got = fused_weight_resample_seeded(
+                    lw, parts, words, alive, uni, thr, "stratified", always,
+                    dead=d_k, **day)
+                got_h = fused_weight_resample(
+                    lw, parts, pos, uni, thr, always, num_alive=alive,
+                    dead=d_h, **day)
+                calls += 2
+            else:
+                got = fused_weight_resample_reference(
+                    lw, parts, uni, thr, key_words=words, num_alive=alive,
+                    method="stratified", always_resample=always, dead=d_k,
+                    **day)
+                got_h = fused_weight_resample_reference(
+                    lw, parts, uni, thr, positions=pos, num_alive=alive,
+                    always_resample=always, dead=d_h, **day)
+            runs.append((*got, d_k, *got_h, d_h))
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert _same(a, b), (c, always)
+        p, w, _, _, ll_out, rec, est, dead_out = runs[0][:8]
+        if full:
+            assert torch.isfinite(ll_out).all() and not dead_out.any()
+        else:
+            assert dead_out[2] and dead_out[5] and not dead_out[0]
+            assert ll_out[2] == float("-inf") and rec[2] == 0
+            assert not w[2].any() and not est[2].any()
+            assert torch.isnan(ll_out[3])
+            assert torch.isfinite(ll_out[4]) == (alive_n < n)
+    assert _build.launches["bssm_fused_resample"] == before + calls
+
+
+def test_the_engine_day_without_counts_is_refused(dev):
+    """A day (``loglike`` given) on host positions needs ``num_alive``:
+    the launcher says so before it launches."""
+    c, n = 4, 128
+    lw, parts = torch.zeros((c, n), device=dev), torch.zeros((c, n, 1),
+                                                            device=dev)
+    uni = torch.full((c, n), 1.0 / n, device=dev)
+    before = _build.launches["bssm_fused_resample"]
+    with pytest.raises(ValueError, match="num_alive"):
+        _build.launch_fused_resample(
+            lw, parts, uni, torch.zeros(c, device=dev), always=False,
+            pos=torch.zeros((c, n), device=dev),
+            loglike=torch.zeros(c, device=dev),
+            dead=torch.zeros(c, dtype=torch.bool, device=dev),
+            log_n=torch.full((c,), float(np.log(n)), device=dev))
+    assert _build.launches["bssm_fused_resample"] == before
+
+
+@pytest.mark.parametrize("model", ["sinusoidal", "sir"])
+def test_the_engine_day_on_the_card_is_the_former_route(dev, model):
+    """The engine's bootstrap filter on the card (K3 takes the whole day,
+    one launch a day) against the former route, the same filter with the
+    weight step's ops around K3 (tests/_k3_parent_day.py): the same
+    log-likelihoods, history, ESS and particle and weight histories bit for
+    bit; the state estimate to float32 sums' order. The sinusoidal model at
+    1024 lanes (K3's team form), SIR at 128 (its warp form, 2 columns)."""
+    from _k3_parent_day import old_bootstrap_filter
+
+    from bayesssm_tpu_torch.filters import bootstrap_filter
+    from bayesssm_tpu_torch.models.sinusoidal import (
+        simulate_sinusoidal,
+        sinusoidal_model,
+    )
+    from bayesssm_tpu_torch.models.sir import sir_model
+
+    if model == "sinusoidal":
+        _, y = simulate_sinusoidal(1405, 20)
+        fns, _, _ = sinusoidal_model()
+        theta, n = dict(phi=0.8, sigma_x=1.0, sigma_y=0.5), 1024
+    else:
+        _, y = simulate_sir(seed=7, n_total=500, init_infected=70, t_max=10)
+        fns, _, _ = sir_model(500, 70, transition="gillespie_pallas")
+        theta, n = dict(lam=0.5, gamma=0.2), 128
+    words = _words(512, 41, dev)
+    _build.reset_launches()
+    res = bootstrap_filter(words, y, n, *fns, theta=theta)
+    assert _build.launches["bssm_fused_resample"] == len(y)
+    ll, lls, ess, ph, wh, st = old_bootstrap_filter(words, y, n, *fns,
+                                                    theta=theta)
+    torch.cuda.synchronize()
+    assert torch.isfinite(res.loglike).all()
+    assert torch.equal(res.loglike, ll)
+    assert torch.equal(res.loglike_history, lls)
+    assert torch.equal(res.ess, ess)
+    assert torch.equal(res.particles_history, ph)
+    assert torch.equal(res.weights_history, wh)
+    torch.testing.assert_close(res.state_est, st, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("d", [1, 2, 3, 5])

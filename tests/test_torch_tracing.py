@@ -240,10 +240,13 @@ def test_sample_chains_counts_its_steps_and_the_host_waits_of_a_cpu_run(
     # Four transform calls a step: the masks are built once, then reused.
     # Each of the 5 filters draws by threefry's plain twin on the CPU: two
     # key splits, the initial normals, and each day's normals and
-    # resampling uniforms.
+    # resampling uniforms. Each filter day counts `engine.days`; the
+    # portable weight step (no K3 on the CPU's "auto") counts no
+    # `engine.k3_days`.
     assert call["counters"] == {"mh_steps": 4, "transform_consts.build": 1,
                                 "transform_consts.hit": 15,
-                                "threefry.plain": 5 * (3 + 2 * len(y))}
+                                "threefry.plain": 5 * (3 + 2 * len(y)),
+                                "engine.days": 5 * len(y)}
     assert call["spans"]["sample_chains/mh_step"]["count"] == 4
     assert call["spans"]["sample_chains/filter"]["count"] == 1
     assert call["spans"]["sample_chains/mh_step/filter"]["count"] == 4
